@@ -1,11 +1,11 @@
-"""autompc_tpu: a TPU-native AutoML toolkit for system identification and
-model-predictive control.
+"""autompc_tpu: an accelerator-native AutoML toolkit for system
+identification and model-predictive control.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability set of AutoMPC
 (reference layout: autompc/__init__.py:3-9): learned dynamics models
 compile to pure JAX step functions, MPC optimizers run as fused XLA/Pallas
 programs over batched rollouts, and the AutoML tuning loop evaluates
-batches of candidate pipelines in parallel across a TPU device mesh.
+batches of candidate pipelines in parallel across a device mesh.
 """
 
 from .core import (

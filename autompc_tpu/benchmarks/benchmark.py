@@ -8,7 +8,7 @@ from abc import ABC, abstractmethod
 class Benchmark(ABC):
     """Bundles a system, task, ground-truth dynamics, and data generation.
 
-    TPU-native addition: ``dynamics`` must be a jax-traceable pure
+    Addition for compiled rollouts: ``dynamics`` must be a jax-traceable pure
     function so benchmarks can be rolled out inside ``scan``/``vmap``
     (the reference treats dynamics as an arbitrary Python callable)."""
 

@@ -2,7 +2,7 @@
 
 Re-creates the reference generators (reference:
 autompc/utils/data_generation.py:88-209): uniform-random, PRBS,
-random-walk, periodic, and multisine excitation. TPU-native re-design:
+random-walk, periodic, and multisine excitation. Re-design for batched devices:
 
 * Control signals are **precomputed as arrays** (they never depend on the
   state), then all trajectories roll through the dynamics as one

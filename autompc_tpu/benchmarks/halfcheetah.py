@@ -1,4 +1,4 @@
-"""Halfcheetah benchmark with TPU-native planar multibody dynamics.
+"""Halfcheetah benchmark with jax-native planar multibody dynamics.
 
 Re-creates the reference halfcheetah benchmark (reference:
 autompc/benchmarks/halfcheetah.py:249-298): 18-dim state (9 qpos + 9

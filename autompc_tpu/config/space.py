@@ -2,7 +2,7 @@
 
 Re-creates the capabilities AutoMPC gets from the ConfigSpace package
 (see reference usage in autompc/utils/cs_utils.py:162-293 and the factory
-`get_configuration_space` methods), with two TPU-motivated additions:
+`get_configuration_space` methods), with two accelerator-motivated additions:
 
 1. **Vectorized encode/decode** (`ConfigurationSpace.encode` /
    `decode`): configurations map to fixed-width unit-hypercube feature
@@ -390,7 +390,7 @@ class Configuration:
         body = ", ".join(f"{k}={v!r}" for k, v in sorted(self._values.items()))
         return f"Configuration({body})"
 
-    # -- TPU-specific helpers ----------------------------------------
+    # -- Compiled-shape helpers ----------------------------------------
     def shape_signature(self, shape_params: Optional[Sequence[str]] = None) -> Tuple:
         """Hashable signature of the hyperparameters that change compiled
         array shapes. With no argument, every int/categorical value is part

@@ -1,9 +1,9 @@
 """Controller layer: MPC optimizers as scan-compatible step functions.
 
 Re-creates the reference ``Controller``/``ControllerFactory`` contract
-(reference: autompc/control/controller.py:6-121) with a TPU-native core:
-every controller exposes a **pure step function** ``step(cstate, obs) ->
-(ctrl, cstate)`` over a pytree controller state, so an entire closed-loop
+(reference: autompc/control/controller.py:6-121) with an
+accelerator-native core: every controller exposes a **pure step
+function** ``step(cstate, obs) -> (ctrl, cstate)`` over a pytree controller state, so an entire closed-loop
 episode runs as one ``lax.scan`` on device (the reference re-enters
 ``controller.run`` from Python every time step,
 utils/simulation.py:52-63). The reference's ``run`` API is kept as a thin

@@ -24,7 +24,6 @@ shape.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -32,7 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import ConfigurationSpace, UniformIntegerHyperparameter
-from ..ops.riccati import tvlqr_backward_scan
+from ..ops.riccati import highest_precision, tvlqr_backward_scan
 from .controller import Controller, ControllerFactory
 
 
@@ -134,6 +133,7 @@ def make_ilqr_solver(
 
         return jax.vmap(rollout)(alphas)
 
+    @highest_precision
     def solve(params, x0, uguess):
         xs0, Jx0, Ju0 = forward(params, x0, uguess)
         obj0 = eval_obj(xs0, uguess)
@@ -231,6 +231,13 @@ def make_ilqr_solver(
     return solve
 
 
+def kernels_available(pallas_interpret: bool = False) -> bool:
+    """Whether the solver's hand-written kernels run here: compiled on
+    the GPU, or in interpret mode when the caller asks for it (CPU
+    tests). Other platforms take the plain XLA paths."""
+    return bool(pallas_interpret) or jax.default_backend() == "gpu"
+
+
 def make_batched_ilqr_solver(
     pred_core,
     cost,
@@ -246,15 +253,10 @@ def make_batched_ilqr_solver(
     ls_discount: float = 0.2,
     ls_cost_threshold: float = 0.3,
     unroll: int = 8,
-    backward: str = "pallas",
+    backward: str = "auto",
     feature_spec=None,
     analytic_jac: bool = False,
-    relin: str = "auto",
-    relin_block_b: int = 1024,
     feature_mask=None,
-    fuse_ls: bool = False,
-    block_b: int = 128,
-    ls_block_l: int = 5,
     return_pieces: bool = False,
     quad_cost_batch: bool = False,
     quad_goal=None,
@@ -262,148 +264,101 @@ def make_batched_ilqr_solver(
     reg_matrix=None,
     reg_goal=None,
     pred_diff=None,
-    mlp_ls=None,
-    lanes_last: bool = False,
-    ls_wide: bool = False,
-    jac_dtype: str = "f32",
     horizon_mask: bool = False,
     pallas_interpret: bool = False,
 ):
     """Batch-native iLQR solve: ``solve(params, x0s (B,ds), uguess
     (B,H,dc)) -> (converged (B,), xs, us, Ks, ks)``.
 
-    ``batch_params=True`` gives every lane its OWN model: every leaf of
-    ``params`` carries a leading batch axis (e.g. SINDy coefficients
-    ``(B, ds, F)``). This is what lets the JOINT tuning fan-out — the
-    reference's flagship scenario, a fresh sysid model trained per
-    candidate (autompc/tuning/pipeline_tuner.py:213-258,
-    pipeline.py:107-168) — evaluate a whole candidate batch in one
-    solver program: the forward/relinearization/line-search phases map
-    over the params axis, the Pallas feature kernels take per-lane
-    coefficient planes (VMEM lanes-last instead of SMEM), and the
-    backward pass is unchanged (it consumes Jacobians, not params).
-    Converged-lane compaction gathers the params rows alongside the
-    rest of the carry. Composes with ``fuse_ls`` + ``quad_cost_batch``:
-    the fused line-search kernel takes per-lane coefficient planes and
-    per-lane diagonal cost rows (ops/pallas_linesearch.py:
-    pallas_fused_line_search(per_lane_diag_cost=True)).
-
-    ``return_pieces=True`` additionally returns the solver's building
-    blocks ``(solve, make_carry0, cond, make_body)`` — the outer
-    while_loop's init/cond/body — so callers can drive the iteration
-    themselves (the staged/compacting solver below re-dispatches
-    surviving lanes into smaller batch buckets between chunks).
-
-    ``quad_cost_batch=True`` gives every lane its OWN diagonal
-    quadratic cost: the solve takes a fourth argument ``cost_params``
-    — a dict of per-lane diagonals ``Qdiag (B, obsdim)``, ``Rdiag
-    (B, dc)``, ``Fdiag (B, obsdim)`` (the QuadCostFactory search
-    space, costs/quad_cost_factory.py) with the shared ``quad_goal``.
-    This is what lets the tuning fan-out evaluate a whole candidate
-    batch in ONE solver program (large MXU tiles + converged-lane
-    compaction) instead of vmapping per-candidate solves; ``cost`` is
-    ignored and may be None (semantics are the QuadCost fast paths:
-    value ``(x-g)'Q(x-g)``, gradient ``2Q(x-g)``, hessian ``2Q``,
-    costs/cost.py:62-141). Incompatible with ``fuse_ls``.
-
-    ``reg_matrix`` / ``reg_goal`` (requires ``quad_cost_batch``) add a
-    per-lane-WEIGHTED shared dense quadratic stage term
-    ``regw * (x - reg_goal)' reg_matrix (x - reg_goal)`` — the
-    GaussRegFactory candidate space (``Q = w Sigma_x^{-1}``, goal
-    ``mu_x``, R = F = 0; costs/gauss_reg_factory.py, reference
-    autompc/costs/gauss_reg_factory.py:37-45). ``cost_params`` then
-    additionally carries ``regw (B,)``. A SumCostFactory of
-    QuadCostFactory + GaussRegFactory candidates is exactly this
-    shape: per-lane diagonals with shared task goal PLUS a per-lane
-    scalar times one shared SPD matrix with its own goal. The stage
-    hessian becomes dense, so the diagonal-specialized backward kernel
-    is replaced by the dense-expansion Pallas backward automatically;
-    ``reg_matrix`` must be symmetric (gradient ``2 regw S (x-mu)``).
-
-    ``pred_diff``: optional ``(params, x, u) -> (pred, Jx, Ju)`` with a
-    CLOSED-FORM model Jacobian (e.g. ``MLP.pred_diff_core``'s layer
-    chain, sysid/mlp.py:net_apply_jac) — replaces the ``jax.jacfwd``
-    formulation in the forward/relinearization phases, which pays one
-    forward per input dimension (24 tangents at halfcheetah scale).
-    Ignored when ``feature_spec`` provides the linear-in-features
-    kernels.
-
     Functionally equivalent to ``jax.vmap(make_ilqr_solver(...))`` (the
     outer iteration is a single ``while_loop`` with per-lane activity
-    masks — exactly vmap's batching rule for while_loop), but the
-    backward pass runs on the whole batch at once, which lets it use the
-    Pallas batched Riccati kernel (ops/pallas_riccati.py, ~2.3x the XLA
-    scan at B=4096). ``backward``: "pallas" (dc=1 only; falls back
-    automatically), "scan", or "assoc" (O(log H)-depth
-    associative-scan Riccati, ops/riccati.py:tvlqr_backward_assoc —
-    the H >> 200 long-horizon option; requires invertible Cuu).
+    masks, which is vmap's batching rule for while_loop), but every
+    phase sees the whole batch at once.
+
+    **Path choice.** The platform and the inputs pick the path; there
+    are no kernel knobs. Where ``kernels_available()`` holds (on the
+    GPU, or with ``pallas_interpret=True`` in tests):
+
+    * the backward pass runs the Pallas kernel with inline diagonal-
+      quadratic expansions (ops/pallas_riccati.py) when dc == 1, the
+      cost is a diagonal quadratic (a fixed diagonal ``QuadCost`` or
+      ``quad_cost_batch`` without ``reg_matrix``) and ``horizon_mask``
+      is off, and ``backward`` is "auto";
+    * the line search runs the fused Pallas kernel
+      (ops/pallas_linesearch.py: rollout of every alpha, objective,
+      acceptance rule, and the Jacobians of the accepted trajectory)
+      when ``feature_spec`` is given and the cost is quadratic.
+
+    A kernel that fails to compile raises; nothing falls back. Elsewhere
+    the backward pass is ``vmap(tvlqr_backward_scan)`` (or the
+    O(log H)-depth ``tvlqr_backward_assoc`` with ``backward="assoc"``),
+    and the line search rolls every alpha with ``vmap(lax.scan)``.
+    ``backward="scan"`` names the XLA recursion explicitly (the plain
+    reference, and the A/B against the kernel). All XLA dots run at
+    ``"highest"`` matmul precision.
+
+    ``batch_params=True`` gives every lane its OWN model: every leaf of
+    ``params`` carries a leading batch axis (e.g. SINDy coefficients
+    ``(B, ds, F)``). This is what lets the joint tuning fan-out (a
+    fresh sysid model trained per candidate; reference
+    autompc/tuning/pipeline_tuner.py:213-258) evaluate a whole
+    candidate batch in one solver program. Converged-lane compaction
+    gathers the params rows alongside the rest of the carry.
+
+    ``return_pieces=True`` additionally returns the solver's building
+    blocks ``(solve, make_carry0, cond, make_body)`` (the outer
+    while_loop's init/cond/body) so callers can drive the iteration
+    themselves (the compacting solvers below).
+
+    ``quad_cost_batch=True`` gives every lane its OWN diagonal
+    quadratic cost: the solve takes a fourth argument ``cost_params``,
+    a dict of per-lane diagonals ``Qdiag (B, obsdim)``, ``Rdiag
+    (B, dc)``, ``Fdiag (B, obsdim)`` (the QuadCostFactory search
+    space, costs/quad_cost_factory.py) with the shared ``quad_goal``;
+    ``cost`` is ignored and may be None (value ``(x-g)'Q(x-g)``,
+    gradient ``2Q(x-g)``, hessian ``2Q``, costs/cost.py:62-141).
+
+    ``reg_matrix`` / ``reg_goal`` (requires ``quad_cost_batch``) add a
+    per-lane-weighted shared dense quadratic stage term
+    ``regw * (x - reg_goal)' reg_matrix (x - reg_goal)``: the
+    GaussRegFactory candidate space (``Q = w Sigma_x^{-1}``, goal
+    ``mu_x``; costs/gauss_reg_factory.py). ``cost_params`` then also
+    carries ``regw (B,)``; ``reg_matrix`` must be symmetric.
+
+    ``pred_diff``: optional ``(params, x, u) -> (pred, Jx, Ju)`` with a
+    closed-form model Jacobian (e.g. ``MLP.pred_diff_core``) replacing
+    ``jax.jacfwd`` in the forward/relinearization phases.
 
     ``feature_spec``: optional ``(feature_library, coeffs_param_key)``
-    for linear-in-features models (discrete-time SINDy/Koopman form) —
-    enables the Pallas line-search rollout kernel
-    (ops/pallas_linesearch.py) for any number of control dims.
-    ``analytic_jac=True`` additionally uses the library's
-    closed-form feature Jacobians for the forward/relinearization
-    passes (measured a wash vs jacfwd on TPU for the block-vectorized
-    library; kept as an option).
+    declaring the model linear in features (discrete-time SINDy/Koopman
+    form ``x' = coeffs @ theta(x, u)``). ``analytic_jac=True`` uses the
+    library's closed-form feature Jacobians in the XLA forward and
+    relinearization passes.
 
-    ``feature_mask``: optional static feature sparsity for the Pallas
-    kernels — a boolean sequence over the library's features, or a
-    tuple of active feature indices. A thresholded STLSQ fit typically
-    leaves most coefficient columns exactly zero (the headline
-    cartpole model uses 7 of 55 features), yet the kernels evaluate
-    every term function per rollout step; masking skips dead features
-    at TRACE time (term tuples and coefficient columns are filtered
-    before the kernel). The compiled solve is only correct for params
-    whose coefficients are zero outside the mask — pass it when the
-    model is fixed (a trained controller, the tuning fan-out's shared
-    surrogate), never when one compiled program must serve arbitrary
-    retrained coefficients.
+    ``feature_mask``: optional static feature sparsity for the line-
+    search kernel: a boolean sequence over the library's features, or
+    a tuple of active feature indices. A thresholded STLSQ fit leaves
+    most coefficient columns exactly zero (the headline cartpole model
+    uses 7 of 55 features); masking drops dead features at trace time.
+    The compiled solve is only correct for params whose coefficients
+    are zero outside the mask, so pass it only when the model is fixed.
 
-    ``relin``: how the accepted trajectory is relinearized — the most
-    expensive phase of the iteration (51% of the body at the headline
-    shape; tools/profile_ilqr_phases.py). "pallas" uses the lanes-last
-    relinearization kernel (ops/pallas_relin.py; needs
-    ``feature_spec``); "xla" keeps the jacfwd/analytic formulation;
-    "auto" (default) picks "pallas" whenever ``feature_spec`` is given,
-    matching the line-search kernel choice.
-
-    ``fuse_ls=True`` upgrades the line-search kernel to the fully fused
-    variant when the cost is quadratic: objective evaluation and the
-    acceptance rule run inside the kernel and only the selected
-    trajectory is written out
-    (ops/pallas_linesearch.py:pallas_fused_line_search), eliminating
-    the (B, L, H, ds) candidate window from HBM at the price of one
-    extra re-roll of the selected alpha. Measured a wash at the
-    headline shape (B=4096, H=200, ds=4: 4483 vs 4585 solves/s) —
-    useful when VMEM/HBM pressure dominates (larger L, ds, or H).
-
-    ``block_b``: batch lanes per Pallas kernel program (both the
-    backward-pass and line-search kernels); must divide the batch or
-    equal it.
-
-    ``lanes_last=True`` (round 4): keep the ENTIRE iteration carry in
-    the kernels' native lanes-last layout — xs (H+1, ds, B), us (H, B),
-    gains (H, ds, B)/(H, B), and the dynamics Jacobians as ONE packed
-    sublane-dense plane jac_p (H, ds*(ds+1), B) that flows from the
-    fused line-search kernel's relinearization output straight into
-    the backward kernel. The batch-major wrappers relayout every one of
-    those arrays TWICE per iteration ((B,H,...) <-> (H,...,B) HBM
-    round-trips that rival the kernels' own streams at headline batch
-    sizes); this mode performs one pack at solve entry and one unpack
-    at exit instead. Requires the fully-fused dc=1 diagonal-quadratic
-    path: ``fuse_ls`` + a ``feature_spec`` whose library has
-    ``grad_terms`` + the diagonal-cost backward (fixed diagonal
-    QuadCost or ``quad_cost_batch``) + ``relin`` != "xla". Public
-    solve/cost_params contracts are unchanged (batch-major at the
-    boundary).
-
-    ``ls_wide`` (lanes_last only, takes effect when B % 1024 == 0):
-    the WIDE split line search (ops/pallas_linesearch.py:
-    pallas_fused_line_search_wide) — parity-identical to the fused
-    kernel; measured a wash on the headline (+1%, PERF.md
-    negative-result note), kept as an opt-in.
+    ``horizon_mask``: horizon-polymorphic solves. The program compiles
+    once at H = H_max; every lane carries its own effective horizon
+    ``cost_params["heff"]`` (B,) int32 and steps t >= heff are inert:
+    frozen dynamics (x_{t+1} = x_t, Jx = I, Ju = 0), zero stage cost,
+    controls pinned to their previous value. The padded solve is
+    algebraically identical to a dedicated solve at H = heff
+    (tests/test_horizon_mask.py). It lets the AutoML tuner compile one
+    program for every controller horizon instead of one per horizon
+    (reference horizon space: autompc/control/ilqr.py:24-27).
     """
+    from ..ops.riccati import tvlqr_backward_assoc
+
+    if backward not in ("auto", "scan", "assoc"):
+        raise ValueError(
+            f"backward must be 'auto', 'scan' or 'assoc', got {backward!r}"
+        )
     if ubounds is not None:
         umin = jnp.asarray(ubounds[0])
         umax = jnp.asarray(ubounds[1])
@@ -411,27 +366,7 @@ def make_batched_ilqr_solver(
     def clip_u(u):
         return jnp.clip(u, umin, umax) if ubounds is not None else u
 
-    use_pallas = backward == "pallas" and dc == 1
-    # Multi-control backward: the general time-streamed kernel (any ds,
-    # dc — halfcheetah ds=18, dc=6; ops/pallas_riccati.py:
-    # pallas_tvlqr_backward_general). dc=1 keeps the whole-horizon-
-    # resident kernels, which are faster at small ds.
-    use_pallas_general = backward == "pallas" and dc > 1
-    if relin not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown relin mode {relin!r}")
-    if relin == "pallas" and feature_spec is None:
-        raise ValueError("relin='pallas' needs feature_spec")
-    use_pallas_relin = feature_spec is not None and relin != "xla"
     p_ax = 0 if batch_params else None
-    if mlp_ls is not None and batch_params:
-        # fold_mlp_params on a leading-batch-axis params pytree would
-        # otherwise surface as an opaque 'MLP output width B != state
-        # dim' trace error inside the kernel driver (ADVICE r3).
-        raise ValueError(
-            "mlp_ls (Pallas MLP line-search kernel) does not support "
-            "batch_params=True (per-lane model parameters); use the "
-            "default XLA-scan line search for per-lane MLP batches"
-        )
 
     if feature_mask is not None:
         if feature_spec is None:
@@ -462,137 +397,46 @@ def make_batched_ilqr_solver(
         # coefficient planes.
         return fns_a, gts_a, (lambda c: c[..., sel])
 
-    # Diagonal-quadratic costs let the Pallas backward kernel compute
-    # the stage expansions inline from (xs, us) — the whole expansions
-    # phase plus the (B, H, ds, ds) Cxx materialization disappears
-    # (ops/pallas_riccati.py:pallas_tvlqr_backward_quad).
     if reg_matrix is not None and not quad_cost_batch:
         raise ValueError("reg_matrix requires quad_cost_batch=True")
-    if quad_cost_batch:
-        # The dense reg term makes the stage hessian non-diagonal, so
-        # the diagonal-specialized backward kernel is out; the dense-
-        # expansion kernel path (`use_pallas` branch below) takes over.
-        # horizon_mask needs per-(lane, step) masked expansions, which
-        # the inline-expansion kernel cannot express (its cost diag is
-        # time-constant) — fall through to the expansion-stream path.
-        quad_backward = (
-            use_pallas and reg_matrix is None and not horizon_mask
-        )
-        fixed_diag = None
-    else:
-        fixed_diag = None
-        if (
-            use_pallas
-            and cost is not None
-            and getattr(cost, "is_quad", False)
-            and hasattr(cost, "_Q")
-        ):
-            Qm = np.asarray(cost._Q)
-            Rm = np.asarray(cost._R)
-            Fm = np.asarray(cost._F)
-            if (
-                np.allclose(Qm, np.diag(np.diag(Qm)))
-                and np.allclose(Rm, np.diag(np.diag(Rm)))
-                and np.allclose(Fm, np.diag(np.diag(Fm)))
-            ):
-                g = getattr(cost, "_goal", None)
-                fixed_diag = (
-                    jnp.asarray(np.diag(Qm)),
-                    jnp.asarray(np.diag(Rm)),
-                    jnp.asarray(np.diag(Fm)),
-                    jnp.asarray(
-                        np.zeros(obsdim) if g is None else np.asarray(g)
-                    ),
-                )
-        quad_backward = fixed_diag is not None
-
-    if lanes_last:
-        lib_gts = (
-            getattr(feature_spec[0], "grad_terms", None)
-            if feature_spec is not None else None
-        )
-        if not (
-            quad_backward and fuse_ls and use_pallas_relin
-            and feature_spec is not None and dc == 1
-            and lib_gts is not None and mlp_ls is None
-        ):
-            raise ValueError(
-                "lanes_last=True requires the fully-fused dc=1 "
-                "diagonal-quadratic path: fuse_ls=True, a feature_spec "
-                "whose library has grad_terms, relin != 'xla', and a "
-                "diagonal quadratic cost (fixed QuadCost or "
-                "quad_cost_batch); got "
-                f"quad_backward={quad_backward}, fuse_ls={fuse_ls}, "
-                f"relin_pallas={use_pallas_relin}, dc={dc}, "
-                f"grad_terms={'yes' if lib_gts is not None else 'no'}, "
-                f"mlp_ls={'set' if mlp_ls is not None else 'None'}"
-            )
-    if jac_dtype not in ("f32", "bf16"):
-        raise ValueError(f"jac_dtype must be f32/bf16, got {jac_dtype!r}")
-    if jac_dtype == "bf16" and not lanes_last:
-        raise ValueError(
-            "jac_dtype='bf16' (half-stream jac carry; the B=131072 "
-            "HBM fit) is implemented for the lanes-last packed-jac "
-            "carry only"
-        )
-    _jac_np = jnp.bfloat16 if jac_dtype == "bf16" else None
-
-    # horizon_mask: horizon-POLYMORPHIC solves. The program compiles
-    # once at H = H_max; every lane carries its own effective horizon
-    # ``cost_params["heff"]`` (B,) int32 and steps t >= heff are made
-    # INERT: frozen dynamics (x_{t+1} = x_t, Jx = I, Ju = 0), zero
-    # stage cost/gradients (Cuu stays PD so the Riccati step is
-    # well-posed but yields K = k = 0 and V passes through unchanged),
-    # controls pinned to their previous value (du = 0). The padded
-    # solve is algebraically identical to a dedicated solve at
-    # H = heff (tests/test_horizon_mask.py pins this lane-for-lane).
-    # Motivation: the AutoML tuner's controller-horizon hyperparameter
-    # otherwise buckets every distinct horizon into its OWN compiled
-    # program — ~one multi-minute TPU compile per candidate on fresh
-    # horizons (the round-5 bench_tune.py profile; reference horizon
-    # space: /root/reference/autompc/control/ilqr.py:24-27).
     if horizon_mask:
         if not quad_cost_batch:
             raise ValueError("horizon_mask requires quad_cost_batch=True")
-        if lanes_last or fuse_ls or mlp_ls is not None:
-            raise ValueError(
-                "horizon_mask uses the XLA line-search path; fuse_ls, "
-                "lanes_last and mlp_ls are unsupported with it"
-            )
         if feature_spec is not None or analytic_jac:
             raise ValueError(
                 "horizon_mask does not compose with feature-library "
-                "kernels yet; keep horizon in the bucket key for "
+                "solvers yet; keep horizon in the bucket key for "
                 "feature-spec solvers"
             )
 
-    def relinearize_batch(params, xs, us):
-        """(B, H+1, ds), (B, H, dc) -> Jx (B, H, ds, ds), Ju
-        (B, H, ds, dc) at the first H points of every lane."""
-        if use_pallas_relin:
-            from ..ops.pallas_relin import pallas_feature_jacobians
-
-            library, coeffs_key = feature_spec
-            B = xs.shape[0]
-            # Relinearization has no sequential dependence, so it
-            # takes much bigger batch tiles than the rollout kernels
-            # (its per-program VMEM window is tiny); halve until the
-            # tile divides the (compaction-shrunk) batch.
-            TB = min(relin_block_b, B)
-            while TB > 128 and B % TB != 0:
-                TB //= 2
-            if B % TB != 0:
-                TB = B
-            fns_a, gts_a, sel = _active_terms(library)
-            return pallas_feature_jacobians(
-                fns_a, xs, us, sel(params[coeffs_key]),
-                grad_terms=gts_a,
-                block_b=TB,
-                interpret=pallas_interpret,
+    # Diagonal quadratic costs: the expansions are a handful of per-lane
+    # multiplies, which the backward kernel computes inline from
+    # (xs, us).
+    fixed_diag = None
+    if not quad_cost_batch and getattr(cost, "is_quad", False) and hasattr(
+        cost, "_Q"
+    ):
+        Qm, Rm, Fm = (np.asarray(cost._Q), np.asarray(cost._R),
+                      np.asarray(cost._F))
+        if all(np.allclose(M, np.diag(np.diag(M))) for M in (Qm, Rm, Fm)):
+            g = getattr(cost, "_goal", None)
+            fixed_diag = (
+                jnp.asarray(np.diag(Qm)), jnp.asarray(np.diag(Rm)),
+                jnp.asarray(np.diag(Fm)),
+                jnp.asarray(np.zeros(obsdim) if g is None else np.asarray(g)),
             )
-        return jax.vmap(relinearize_one, in_axes=(p_ax, 0, 0))(
-            params, xs, us
-        )
+    kernels = kernels_available(pallas_interpret)
+    diag_cost = (quad_cost_batch and reg_matrix is None) or (
+        fixed_diag is not None
+    )
+    use_bq_kernel = (
+        kernels and backward == "auto" and dc == 1 and diag_cost
+        and not horizon_mask
+    )
+    quad_cost = quad_cost_batch or (
+        getattr(cost, "is_quad", False) and hasattr(cost, "_Q")
+    )
+    use_ls_kernel = kernels and feature_spec is not None and quad_cost
 
     def relinearize_one(params, xs, us):
         if analytic_jac and feature_spec is not None:
@@ -775,7 +619,8 @@ def make_batched_ilqr_solver(
             vn = jnp.zeros(ds).at[:obsdim].set(tg)
             return Vn, vn
 
-    alphas = ls_discount ** jnp.arange(ls_max_iter)
+    alphas_static = tuple(float(ls_discount) ** i for i in range(ls_max_iter))
+    alphas = jnp.asarray(alphas_static)
 
     def line_search_one(params, x0, xs, us, Ks, ks):
         def rollout(alpha):
@@ -812,25 +657,139 @@ def make_batched_ilqr_solver(
 
         return jax.vmap(rollout)(alphas)
 
+    def diag_cost_rows(cp, B):
+        """Per-lane cost diagonals and the shared goal, for the kernels."""
+        if quad_cost_batch:
+            return cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal
+        qdf, rdf, fdf, goal_f = fixed_diag
+        return (
+            jnp.broadcast_to(qdf, (B, obsdim)),
+            jnp.broadcast_to(rdf, (B, dc)),
+            jnp.broadcast_to(fdf, (B, obsdim)),
+            goal_f,
+        )
+
+    def backward_pass(Jx, Ju, xs, us, cp):
+        if use_bq_kernel:
+            from ..ops.pallas_riccati import pallas_tvlqr_backward_quad
+
+            Qd, Rd, Fd, goal_q = diag_cost_rows(cp, xs.shape[0])
+            return pallas_tvlqr_backward_quad(
+                Jx, Ju, xs, us, Qd, Rd, Fd, goal_q, dt, obsdim,
+                interpret=pallas_interpret,
+            )
+        Vn, vn = jax.vmap(term_one)(xs[:, H], cp)
+        Cxx, Cuu, cx, cu = jax.vmap(expansions_one)(xs, us, cp)
+        if backward == "assoc":
+            return jax.vmap(tvlqr_backward_assoc)(
+                Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn
+            )
+        return jax.vmap(
+            lambda *a: tvlqr_backward_scan(*a, unroll=unroll)
+        )(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
+
+    def fused_line_search(pp, c, Ks, ks, lin_red, quad_red, ks_small):
+        """The line-search kernel: (new_xs, new_us, new_obj, ls_success,
+        failed[, Jx, Ju]) — the Jacobians only when the library has
+        analytic term gradients."""
+        from ..ops.pallas_linesearch import pallas_fused_line_search
+
+        library, coeffs_key = feature_spec
+        fns_a, gts_a, sel = _active_terms(library)
+        cp = c["cost"]
+        B = c["x0s"].shape[0]
+        if quad_cost_batch:
+            cost_args = (cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal)
+            reg_args = (
+                (Sreg, mureg, cp["regw"]) if reg_matrix is not None
+                else None
+            )
+        elif fixed_diag is not None:
+            cost_args = diag_cost_rows(cp, B)
+            reg_args = None
+        else:
+            g = getattr(cost, "_goal", None)
+            cost_args = (
+                cost._Q, cost._R, cost._F,
+                jnp.zeros(obsdim) if g is None else g,
+            )
+            reg_args = None
+        lo = umin if ubounds is not None else jnp.full((dc,), -jnp.inf)
+        hi = umax if ubounds is not None else jnp.full((dc,), jnp.inf)
+        return pallas_fused_line_search(
+            fns_a, c["x0s"], c["xs"], c["us"], Ks, ks,
+            sel(pp[coeffs_key]), alphas_static, lo, hi,
+            *cost_args, dt, c["obj"], lin_red, quad_red, ks_small,
+            grad_terms=gts_a,
+            ls_cost_threshold=ls_cost_threshold,
+            diag_cost=quad_cost_batch or fixed_diag is not None,
+            reg=reg_args,
+            interpret=pallas_interpret,
+        )
+
+    def xla_line_search(pp, c, Ks, ks, lin_red, quad_red, ks_small):
+        x0s, xs, us, cp = c["x0s"], c["xs"], c["us"], c["cost"]
+        if horizon_mask:
+            ls_xs, ls_us = jax.vmap(
+                line_search_one_m, in_axes=(p_ax, 0, 0, 0, 0, 0, 0),
+            )(pp, x0s, xs, us, Ks, ks, cp["heff"])
+        else:
+            ls_xs, ls_us = jax.vmap(
+                line_search_one, in_axes=(p_ax, 0, 0, 0, 0, 0)
+            )(pp, x0s, xs, us, Ks, ks)
+        new_objs = jax.vmap(
+            lambda xs_l, us_l, cp1: jax.vmap(
+                lambda a, b: eval_obj_one(a, b, cp1)
+            )(xs_l, us_l)
+        )(ls_xs, ls_us, cp)
+        expect = alphas[None, :] * lin_red[:, None] + (
+            alphas[None, :] ** 2
+        ) * quad_red[:, None] / 2
+        denom = -expect
+        ratios = jnp.where(
+            jnp.abs(denom) > 1e-30,
+            (c["obj"][:, None] - new_objs) / denom,
+            -jnp.inf,
+        )
+        accept = ratios > ls_cost_threshold
+        any_acc = jnp.any(accept, axis=1)
+        first_acc = jnp.argmax(accept, axis=1)
+        # First acceptor wins; otherwise argmin over objectives; with a
+        # tiny k only alpha 0 is ever evaluated (ilqr.py:208-225).
+        chosen = jnp.where(
+            ks_small, 0,
+            jnp.where(any_acc, first_acc, jnp.argmin(new_objs, axis=1)),
+        )
+        take = jax.vmap(lambda a, i: a[i])
+        best_obj = take(new_objs, chosen)
+        ls_success = (best_obj < c["obj"]) | ks_small
+        idx_last = jnp.where(
+            ks_small, 0, jnp.where(any_acc, first_acc, ls_max_iter - 1)
+        )
+        last_obj = take(new_objs, idx_last)
+        failed_now = (~ls_success) & (last_obj > c["obj"] + 1e-3)
+        sel = jnp.where(ls_success, chosen, idx_last)
+        new_obj = jnp.where(ls_success, best_obj, last_obj)
+        return (take(ls_xs, sel), take(ls_us, sel), new_obj, ls_success,
+                failed_now)
+
+    def relinearize_batch(pp, xs, us, cp):
+        Jx, Ju = jax.vmap(relinearize_one, in_axes=(p_ax, 0, 0))(pp, xs, us)
+        if horizon_mask:
+            # Padded steps relinearize as (I, 0): the frozen dynamics'
+            # exact Jacobian (see the horizon_mask doc).
+            mB = (_tsteps[None, :] < cp["heff"][:, None])[..., None, None]
+            Jx = jnp.where(mB, Jx, jnp.eye(ds, dtype=Jx.dtype))
+            Ju = jnp.where(mB, Ju, jnp.zeros_like(Ju))
+        return Jx, Ju
+
+    @highest_precision
     def make_carry0(params, x0s, uguess, cost_params=None):
         B = x0s.shape[0]
         cp = cost_params if quad_cost_batch else {}
         if quad_cost_batch and cost_params is None:
             raise ValueError("quad_cost_batch solve needs cost_params")
-        if use_pallas_relin:
-            def roll_one(params_, x0, us):
-                def step(x, u):
-                    pred = pred_core(params_, x, u)
-                    return pred, pred
-
-                _, xs1 = jax.lax.scan(step, x0, us, unroll=unroll)
-                return jnp.concatenate([x0[None], xs1], axis=0)
-
-            xs0 = jax.vmap(roll_one, in_axes=(p_ax, 0, 0))(
-                params, x0s, uguess
-            )
-            Jx0, Ju0 = relinearize_batch(params, xs0, uguess)
-        elif horizon_mask:
+        if horizon_mask:
             xs0, Jx0, Ju0 = jax.vmap(
                 forward_one_m, in_axes=(p_ax, 0, 0, 0)
             )(params, x0s, uguess, cp["heff"])
@@ -839,37 +798,6 @@ def make_batched_ilqr_solver(
                 params, x0s, uguess
             )
         obj0 = jax.vmap(eval_obj_one)(xs0, uguess, cp)
-        if lanes_last:
-            # One-time pack into the kernels' native lanes-last layout
-            # (see the lanes_last doc above); the jac plane is the
-            # packed sublane-dense row layout both Pallas kernels
-            # speak (rows k*(ds+1)+j).
-            jac0 = jnp.concatenate([Jx0, Ju0], axis=-1)    # (B,H,ds,d)
-            jac_p = jnp.transpose(jac0, (1, 2, 3, 0)).reshape(
-                H, ds * (ds + 1), B
-            )
-            if _jac_np is not None:
-                # bf16 jac carry: half the backward kernel's biggest
-                # stream and half the carry's (double-buffered) HBM
-                # residency — the B=131072 fit. Kernels upcast to f32
-                # at their read sites; gains/trajectories stay f32.
-                jac_p = jac_p.astype(_jac_np)
-            cpT = {
-                k: (v.T if getattr(v, "ndim", 0) == 2 else v)
-                for k, v in cp.items()
-            }
-            return dict(
-                x0s=jnp.transpose(x0s, (1, 0)), cost=cpT,
-                **({"params": params} if batch_params else {}),
-                xs=jnp.transpose(xs0, (1, 2, 0)),
-                us=jnp.transpose(uguess[:, :, 0], (1, 0)),
-                jac=jac_p, obj=obj0,
-                Ks=jnp.zeros((H, ds, B)), ks=jnp.zeros((H, B)),
-                itr=jnp.array(0),
-                converged=jnp.zeros(B, dtype=bool),
-                failed=jnp.zeros(B, dtype=bool),
-                done_itr=jnp.zeros(B, dtype=jnp.int32),
-            )
         return dict(
             x0s=x0s, cost=cp,
             **({"params": params} if batch_params else {}),
@@ -885,145 +813,9 @@ def make_batched_ilqr_solver(
         active = ~c["converged"] & ~c["failed"]
         return (c["itr"] < max_iter) & jnp.any(active)
 
-    def make_body_ll(params):
-        """Lanes-last iteration: backward and fused line search speak
-        the packed lanes-last layouts natively — no per-iteration
-        relayouts (see the ``lanes_last`` doc)."""
-        from ..ops.pallas_linesearch import pallas_fused_line_search
-        from ..ops.pallas_riccati import pallas_tvlqr_backward_quad_ll
-
-        library, coeffs_key = feature_spec
-        fns_a, gts_a, sel_cols = _active_terms(library)
-
-        def body(c):
-            x0T = c["x0s"]                      # (ds, B)
-            B = x0T.shape[-1]
-            xsT, usT = c["xs"], c["us"]         # (H+1, ds, B), (H, B)
-            cp = c["cost"]
-            pp = c["params"] if batch_params else params
-            active = ~c["converged"] & ~c["failed"]
-
-            if quad_cost_batch:
-                QdT, RdT, FdT = cp["Qdiag"], cp["Rdiag"], cp["Fdiag"]
-                goal_q = (
-                    jnp.zeros(obsdim) if quad_goal is None
-                    else jnp.asarray(quad_goal)
-                )
-            else:
-                qdf, rdf, fdf, goal_q = fixed_diag
-                QdT = jnp.broadcast_to(qdf[:, None], (obsdim, B))
-                RdT = jnp.broadcast_to(rdf[:, None], (dc, B))
-                FdT = jnp.broadcast_to(fdf[:, None], (obsdim, B))
-            TB = min(block_b, B)
-            # In-kernel carry update: inactive lanes keep their old
-            # gains/trajectories/jacobians via selects at the kernels'
-            # write sites — no separate elementwise where-passes over
-            # the (H, ...) carry arrays (at B=65536 those passes rival
-            # the kernels' own streams).
-            KsT, ksT, lin_red, quad_red = pallas_tvlqr_backward_quad_ll(
-                c["jac"], xsT, usT, QdT, RdT, FdT, goal_q, dt, obsdim,
-                block_b=TB if B % TB == 0 else B,
-                interpret=pallas_interpret,
-                carry=(active, c["Ks"], c["ks"]),
-                # "cast" (default): in-VMEM layout casts; "reshape"
-                # restores the XLA-relayout wide wrapper for A/Bs
-                # (tools/ab_lanes_last.py llc vs ll). Read at trace
-                # time; passed as a STATIC so each variant gets its
-                # own nested-jit cache entry.
-                wide_io=os.environ.get("AMPC_BQ_WIDE_IO", "cast"),
-            )
-            # Inactive lanes' ksT rows hold OLD gains (the carry
-            # select); their acceptance outcome is discarded by the
-            # same masks downstream, so the stale ks_small is inert.
-            ks_small = jnp.sqrt(jnp.sum(ksT**2, axis=0)) < u_threshold
-
-            ls_umin = (
-                umin if ubounds is not None else jnp.full((dc,), -jnp.inf)
-            )
-            ls_umax = (
-                umax if ubounds is not None else jnp.full((dc,), jnp.inf)
-            )
-            coeffs = sel_cols(pp[coeffs_key])
-            if coeffs.ndim == 3:
-                coeffs = jnp.transpose(coeffs, (1, 2, 0))
-            if quad_cost_batch:
-                cost_args = (QdT, RdT, FdT, goal_q)
-                per_lane = True
-            else:
-                cost_args = (cost._Q, cost._R, cost._F, cost._goal)
-                per_lane = False
-            if ls_wide and B % 1024 == 0:
-                # WIDE split line search (full-(S,128)-tile streamed
-                # kernels + XLA acceptance; ops/pallas_linesearch.py).
-                from ..ops.pallas_linesearch import (
-                    pallas_fused_line_search_wide,
-                )
-
-                (new_xsT, new_usT, new_obj, ls_success, failed_now,
-                 jac_new, du2) = pallas_fused_line_search_wide(
-                    fns_a, x0T, xsT, usT, KsT, ksT,
-                    coeffs, alphas, ls_umin, ls_umax,
-                    *cost_args, dt,
-                    c["obj"], lin_red, quad_red, ks_small,
-                    active, c["jac"],
-                    grad_terms=gts_a,
-                    ls_cost_threshold=ls_cost_threshold,
-                    per_lane_diag_cost=per_lane,
-                    interpret=pallas_interpret,
-                )
-            else:
-                (new_xsT, new_usT, new_obj, ls_success, failed_now,
-                 jac_new, du2) = pallas_fused_line_search(
-                    fns_a, x0T, xsT, usT, KsT, ksT,
-                    coeffs, alphas, ls_umin, ls_umax,
-                    *cost_args, dt,
-                    c["obj"], lin_red, quad_red, ks_small,
-                    grad_terms=gts_a,
-                    ls_cost_threshold=ls_cost_threshold,
-                    block_b=TB if B % TB == 0 else B,
-                    per_lane_diag_cost=per_lane,
-                    ll_io=True,
-                    interpret=pallas_interpret,
-                    carry=(active, c["jac"]),
-                    jac_dtype=(
-                        "bfloat16" if _jac_np is not None else None
-                    ),
-                )
-
-            # The kernels already applied the carry selects; outputs
-            # ARE the next carry. du2 is the kernel-accumulated
-            # sum_t |u_sel - u_old|^2 (the same quantity the
-            # batch-major body reduces from new_us - us).
-            converged_now = (jnp.sqrt(du2) < u_threshold) & ~failed_now
-            finished_now = active & (converged_now | failed_now)
-            return dict(
-                x0s=x0T, cost=cp,
-                **({"params": pp} if batch_params else {}),
-                xs=new_xsT,
-                us=new_usT,
-                jac=jac_new,
-                obj=new_obj,
-                Ks=KsT,
-                ks=ksT,
-                itr=c["itr"] + 1,
-                converged=c["converged"] | (converged_now & active),
-                failed=c["failed"] | (failed_now & active),
-                done_itr=jnp.where(
-                    finished_now,
-                    jnp.int32(c["itr"] + 1),
-                    c["done_itr"],
-                ),
-            )
-
-        return body
-
     def make_body(params):
-        if lanes_last:
-            return make_body_ll(params)
-
+        @highest_precision
         def body(c):
-            x0s = c["x0s"]
-            B = x0s.shape[0]
             xs, us = c["xs"], c["us"]
             cp = c["cost"]
             # Per-lane params ride the carry so compaction gathers their
@@ -1031,228 +823,20 @@ def make_batched_ilqr_solver(
             pp = c["params"] if batch_params else params
             active = ~c["converged"] & ~c["failed"]
 
-            if quad_backward:
-                from ..ops.pallas_riccati import pallas_tvlqr_backward_quad
-
-                if quad_cost_batch:
-                    Qd, Rd, Fd = cp["Qdiag"], cp["Rdiag"], cp["Fdiag"]
-                    goal_q = (
-                        jnp.zeros(obsdim) if quad_goal is None
-                        else jnp.asarray(quad_goal)
-                    )
-                else:
-                    qdf, rdf, fdf, goal_q = fixed_diag
-                    Qd = jnp.broadcast_to(qdf, (B, obsdim))
-                    Rd = jnp.broadcast_to(rdf, (B, dc))
-                    Fd = jnp.broadcast_to(fdf, (B, obsdim))
-                TB = min(block_b, B)
-                Ks, ks, lin_red, quad_red = pallas_tvlqr_backward_quad(
-                    c["Jx"], c["Ju"], xs, us, Qd, Rd, Fd, goal_q,
-                    dt, obsdim,
-                    block_b=TB if B % TB == 0 else B,
-                    interpret=pallas_interpret,
-                )
-            elif use_pallas:
-                from ..ops.pallas_riccati import pallas_tvlqr_backward
-
-                Vn, vn = jax.vmap(term_one)(xs[:, H], cp)
-                Cxx, Cuu, cx, cu = jax.vmap(expansions_one)(xs, us, cp)
-                # Pad batch to the kernel's block size.
-                TB = min(block_b, B)
-                Ks, ks, lin_red, quad_red = pallas_tvlqr_backward(
-                    c["Jx"], c["Ju"], Cxx, Cuu, cx, cu, Vn, vn,
-                    block_b=TB if B % TB == 0 else B,
-                    interpret=pallas_interpret,
-                )
-            elif use_pallas_general:
-                from ..ops.pallas_riccati import (
-                    pallas_tvlqr_backward_general,
-                )
-
-                Vn, vn = jax.vmap(term_one)(xs[:, H], cp)
-                Cxx, Cuu, cx, cu = jax.vmap(expansions_one)(xs, us, cp)
-                TB = min(block_b, B)
-                Ks, ks, lin_red, quad_red = pallas_tvlqr_backward_general(
-                    c["Jx"], c["Ju"], Cxx, Cuu, cx, cu, Vn, vn,
-                    block_b=TB if B % TB == 0 else B,
-                )
-            elif backward == "assoc":
-                from ..ops.riccati import tvlqr_backward_assoc
-
-                Vn, vn = jax.vmap(term_one)(xs[:, H], cp)
-                Cxx, Cuu, cx, cu = jax.vmap(expansions_one)(xs, us, cp)
-                Ks, ks, lin_red, quad_red = jax.vmap(tvlqr_backward_assoc)(
-                    c["Jx"], c["Ju"], Cxx, Cuu, cx, cu, Vn, vn
-                )
-            else:
-                Vn, vn = jax.vmap(term_one)(xs[:, H], cp)
-                Cxx, Cuu, cx, cu = jax.vmap(expansions_one)(xs, us, cp)
-                Ks, ks, lin_red, quad_red = jax.vmap(
-                    lambda *a: tvlqr_backward_scan(*a, unroll=unroll)
-                )(c["Jx"], c["Ju"], Cxx, Cuu, cx, cu, Vn, vn)
-            ks_norm = jnp.sqrt(jnp.sum(ks**2, axis=(1, 2)))
-            ks_small = ks_norm < u_threshold
-
-            ls_umin = (
-                umin if ubounds is not None else jnp.full((dc,), -jnp.inf)
+            Ks, ks, lin_red, quad_red = backward_pass(
+                c["Jx"], c["Ju"], xs, us, cp
             )
-            ls_umax = (
-                umax if ubounds is not None else jnp.full((dc,), jnp.inf)
-            )
-            fused_jac = None
-            if feature_spec is not None and fuse_ls and (
-                quad_cost_batch or cost.is_quad
-            ):
-                from ..ops.pallas_linesearch import pallas_fused_line_search
+            ks_small = jnp.sqrt(jnp.sum(ks**2, axis=(1, 2))) < u_threshold
 
-                library, coeffs_key = feature_spec
-                TB = min(block_b, B)
-                fns_a, gts_a, sel = _active_terms(library)
-                # Fuse the relinearization into the selected-alpha
-                # re-roll whenever the library has sparse analytic term
-                # gradients (and the solver isn't pinned to relin="xla")
-                # — deletes the separate relin dispatch from the body.
-                fuse_relin = gts_a is not None and use_pallas_relin
-                if quad_cost_batch:
-                    goal_f = (
-                        jnp.zeros(obsdim) if quad_goal is None
-                        else jnp.asarray(quad_goal)
-                    )
-                    cost_args = (
-                        cp["Qdiag"], cp["Rdiag"], cp["Fdiag"], goal_f,
-                    )
-                    per_lane = True
-                    reg_args = (
-                        (Sreg, mureg, cp["regw"])
-                        if reg_matrix is not None else None
-                    )
-                else:
-                    cost_args = (cost._Q, cost._R, cost._F, cost._goal)
-                    per_lane = False
-                    reg_args = None
-                outs = pallas_fused_line_search(
-                    fns_a, x0s, xs, us, Ks, ks,
-                    sel(pp[coeffs_key]), alphas, ls_umin, ls_umax,
-                    *cost_args, dt,
-                    c["obj"], lin_red, quad_red, ks_small,
-                    grad_terms=gts_a if fuse_relin else None,
-                    ls_cost_threshold=ls_cost_threshold,
-                    block_b=TB if B % TB == 0 else B,
-                    per_lane_diag_cost=per_lane,
-                    reg=reg_args,
-                    interpret=pallas_interpret,
-                )
-                (new_xs, new_us, new_obj, ls_success,
-                 failed_now) = outs[:5]
-                if fuse_relin:
-                    fused_jac = outs[5:]
+            ls = fused_line_search if use_ls_kernel else xla_line_search
+            outs = ls(pp, c, Ks, ks, lin_red, quad_red, ks_small)
+            new_xs, new_us, new_obj, ls_success, failed_now = outs[:5]
+            if len(outs) > 5:
+                Jx_lin, Ju_lin = outs[5:]
             else:
-                if feature_spec is not None:
-                    from ..ops.pallas_linesearch import (
-                        pallas_sindy_line_search,
-                    )
-
-                    library, coeffs_key = feature_spec
-                    TB = min(block_b, B)
-                    fns_a, _, sel = _active_terms(library)
-                    ls_xs, ls_us = pallas_sindy_line_search(
-                        fns_a, x0s, xs, us, Ks, ks,
-                        sel(pp[coeffs_key]), alphas,
-                        ls_umin, ls_umax,
-                        block_b=TB if B % TB == 0 else B,
-                        block_l=ls_block_l,
-                    )
-                elif mlp_ls is not None:
-                    # Time-streamed MLP rollout kernel (ops/
-                    # pallas_mlp_linesearch.py): one launch for the
-                    # whole (B, L, H) rollout instead of H sequential
-                    # XLA scan micro-kernels. ``mlp_ls`` is a dict:
-                    # nonlin (required), interpret (tests).
-                    from ..ops.pallas_mlp_linesearch import (
-                        fold_mlp_params,
-                        pallas_mlp_line_search,
-                    )
-
-                    # The kernel's own block size (the MXU layout's
-                    # VMEM footprint scales with L * TB * 128-padded
-                    # lanes, so its optimum can differ from the
-                    # backward kernel's shared block_b).
-                    ls_tb = min(int(mlp_ls.get("block_b", block_b)), B)
-                    ls_xs, ls_us = pallas_mlp_line_search(
-                        fold_mlp_params(pp, mlp_ls["nonlin"]),
-                        mlp_ls["nonlin"],
-                        x0s, xs, us, Ks, ks, alphas,
-                        ls_umin, ls_umax,
-                        block_b=ls_tb if B % ls_tb == 0 else B,
-                        interpret=bool(mlp_ls.get("interpret", False)),
-                        layout=str(mlp_ls.get("layout", "slab")),
-                        precision=str(mlp_ls.get("precision", "highest")),
-                    )
-                elif horizon_mask:
-                    ls_xs, ls_us = jax.vmap(
-                        line_search_one_m,
-                        in_axes=(p_ax, 0, 0, 0, 0, 0, 0),
-                    )(pp, x0s, xs, us, Ks, ks, cp["heff"])
-                else:
-                    ls_xs, ls_us = jax.vmap(
-                        line_search_one, in_axes=(p_ax, 0, 0, 0, 0, 0)
-                    )(pp, x0s, xs, us, Ks, ks)
-                new_objs = jax.vmap(
-                    lambda xs_l, us_l, cp1: jax.vmap(
-                        lambda a, b: eval_obj_one(a, b, cp1)
-                    )(xs_l, us_l)
-                )(ls_xs, ls_us, cp)
-                expect = alphas[None, :] * lin_red[:, None] + (
-                    alphas[None, :] ** 2
-                ) * quad_red[:, None] / 2
-                denom = -expect
-                ratios = jnp.where(
-                    jnp.abs(denom) > 1e-30,
-                    (c["obj"][:, None] - new_objs) / denom,
-                    -jnp.inf,
-                )
-                accept = ratios > ls_cost_threshold
-                any_acc = jnp.any(accept, axis=1)
-                first_acc = jnp.argmax(accept, axis=1)
-                chosen = jnp.where(
-                    ks_small, 0,
-                    jnp.where(
-                        any_acc, first_acc, jnp.argmin(new_objs, axis=1)
-                    ),
-                )
-                take = jax.vmap(lambda a, i: a[i])
-                best_obj = take(new_objs, chosen)
-                ls_success = (best_obj < c["obj"]) | ks_small
-                idx_last = jnp.where(
-                    ks_small, 0,
-                    jnp.where(any_acc, first_acc, ls_max_iter - 1),
-                )
-                last_obj = take(new_objs, idx_last)
-                failed_now = (~ls_success) & (last_obj > c["obj"] + 1e-3)
-
-                sel = jnp.where(ls_success, chosen, idx_last)
-                new_xs = take(ls_xs, sel)
-                new_us = take(ls_us, sel)
-                new_obj = jnp.where(ls_success, best_obj, last_obj)
-
-            if fused_jac is not None:
-                Jx_lin, Ju_lin = fused_jac
-            else:
-                Jx_lin, Ju_lin = relinearize_batch(pp, new_xs, new_us)
-                if horizon_mask:
-                    # Padded steps relinearize as (I, 0) — the frozen
-                    # dynamics' exact Jacobian (see the horizon_mask
-                    # doc).
-                    mB = _tsteps[None, :] < cp["heff"][:, None]
-                    Jx_lin = jnp.where(
-                        mB[..., None, None],
-                        Jx_lin,
-                        jnp.eye(ds, dtype=Jx_lin.dtype),
-                    )
-                    Ju_lin = jnp.where(
-                        mB[..., None, None], Ju_lin,
-                        jnp.zeros_like(Ju_lin),
-                    )
+                Jx_lin, Ju_lin = relinearize_batch(pp, new_xs, new_us, cp)
+            # Jacobians are only re-linearized after a successful line
+            # search (ilqr.py:236-240).
             succ = ls_success[:, None, None, None]
             Jx_new = jnp.where(succ, Jx_lin, c["Jx"])
             Ju_new = jnp.where(succ, Ju_lin, c["Ju"])
@@ -1266,40 +850,32 @@ def make_batched_ilqr_solver(
                 fl = fail_mask.reshape((-1,) + extra)
                 return jnp.where(act & ~fl, new, old)
 
+            no_fail = jnp.zeros_like(failed_now)
             finished_now = active & (converged_now | failed_now)
             return dict(
-                x0s=x0s, cost=cp,
+                x0s=c["x0s"], cost=cp,
                 **({"params": pp} if batch_params else {}),
                 xs=upd(new_xs, xs, failed_now),
                 us=upd(new_us, us, failed_now),
                 Jx=upd(Jx_new, c["Jx"], failed_now),
                 Ju=upd(Ju_new, c["Ju"], failed_now),
                 obj=upd(new_obj, c["obj"], failed_now),
-                Ks=upd(Ks, c["Ks"], jnp.zeros_like(failed_now)),
-                ks=upd(ks, c["ks"], jnp.zeros_like(failed_now)),
+                Ks=upd(Ks, c["Ks"], no_fail),
+                ks=upd(ks, c["ks"], no_fail),
                 itr=c["itr"] + 1,
                 converged=c["converged"] | (converged_now & active),
                 failed=c["failed"] | (failed_now & active),
                 done_itr=jnp.where(
-                    finished_now,
-                    jnp.int32(c["itr"] + 1),
-                    c["done_itr"],
+                    finished_now, jnp.int32(c["itr"] + 1), c["done_itr"]
                 ),
             )
 
         return body
 
     def finalize(out):
-        """Carry -> the public batch-major (converged, xs, us, Ks, ks)
-        contract (a no-op relayout unless ``lanes_last``)."""
-        if not lanes_last:
-            return (out["converged"], out["xs"], out["us"], out["Ks"],
-                    out["ks"])
-        xs = jnp.transpose(out["xs"], (2, 0, 1))
-        us = jnp.transpose(out["us"], (1, 0))[:, :, None]
-        Ks = jnp.transpose(out["Ks"], (2, 0, 1))[:, :, None, :]
-        ks = jnp.transpose(out["ks"], (1, 0))[:, :, None]
-        return out["converged"], xs, us, Ks, ks
+        """Carry -> the public (converged, xs, us, Ks, ks) contract."""
+        return (out["converged"], out["xs"], out["us"], out["Ks"],
+                out["ks"])
 
     def solve(params, x0s, uguess, cost_params=None):
         carry0 = make_carry0(params, x0s, uguess, cost_params)
@@ -1312,38 +888,26 @@ def make_batched_ilqr_solver(
     return solve
 
 
-def _batch_gather(tree, idx, B, lanes_last=False):
+def _batch_gather(tree, idx, B):
     """Gather rows ``idx`` from every batch-axis leaf (those whose
     first dim equals ``B``); other leaves (scalars like ``itr``) pass
-    through. Shared by the staged and scheduled compaction drivers —
-    a carry field whose leading dim is not the batch axis only needs
-    handling here. ``lanes_last``: the carry is the lanes-last layout —
-    multi-dim leaves whose LAST dim is ``B`` gather on the last axis
-    (checked first: (H, ..., B) leaves can coincidentally have a
-    leading dim equal to B); 1-D ``(B,)`` flags and batch-leading
-    ``params`` leaves still use the axis-0 rule."""
+    through. Shared by the staged and scheduled compaction drivers."""
 
     def g(a):
-        nd = getattr(a, "ndim", 0)
-        if lanes_last and nd >= 2 and a.shape[-1] == B:
-            return a[..., idx]
-        if nd >= 1 and a.shape[0] == B:
+        if getattr(a, "ndim", 0) >= 1 and a.shape[0] == B:
             return a[idx]
         return a
 
     return jax.tree_util.tree_map(g, tree)
 
 
-def _batch_scatter(full, front, idx, B, lanes_last=False):
+def _batch_scatter(full, front, idx, B):
     """Inverse of ``_batch_gather``: write ``front``'s rows back at
     ``idx`` in every batch-axis leaf of ``full``; non-batch leaves
     take the front's value (e.g. ``itr`` — the front ran longest)."""
 
     def s(f, fr):
-        nd = getattr(f, "ndim", 0)
-        if lanes_last and nd >= 2 and f.shape[-1] == B:
-            return f.at[..., idx].set(fr)
-        if nd >= 1 and f.shape[0] == B:
+        if getattr(f, "ndim", 0) >= 1 and f.shape[0] == B:
             return f.at[idx].set(fr)
         return fr
 
@@ -1388,13 +952,6 @@ def make_staged_ilqr_solver(
     (autompc/control/ilqr.py:160-248), except each chunk is a fused
     device program over the surviving batch.
     """
-    if kwargs.get("lanes_last"):
-        # flush() indexes carry leaves batch-major per slot; the
-        # device-side scheduled driver is the lanes-last host.
-        raise ValueError(
-            "lanes_last is not supported by the staged driver; use "
-            "make_scheduled_ilqr_solver"
-        )
     _, make_carry0, cond, make_body = make_batched_ilqr_solver(
         pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt,
         ubounds=ubounds, max_iter=max_iter, return_pieces=True, **kwargs,
@@ -1507,9 +1064,8 @@ def make_scheduled_ilqr_solver(
 
     Same contract as ``make_batched_ilqr_solver`` and fully jittable —
     one device program, zero host round-trips (unlike
-    ``make_staged_ilqr_solver``, whose per-chunk host syncs cost more
-    than they save when the accelerator sits behind a high-latency
-    link). The convergence histogram of the swing-up workload is
+    ``make_staged_ilqr_solver``, which reads the finished mask on the
+    host between chunks). The convergence histogram of the swing-up workload is
     long-tailed (median lane ~15 of the slowest lane's ~50 iterations,
     ~63%% of lane-iteration work wasted), so the solve follows a static
     compaction ``schedule``: a list of ``(cut_iter, size_frac)`` with
@@ -1525,9 +1081,10 @@ def make_scheduled_ilqr_solver(
     bench harnesses use into this form.
 
     Per-lane trajectories are unchanged by compaction (lanes are
-    independent; on TPU, reductions may tile differently at different
-    batch shapes, so borderline convergence flags can differ by float
-    noise — same caveat as any batch-size change).
+    independent; on an accelerator, reductions may be ordered
+    differently at different batch shapes, so borderline convergence
+    flags can differ by float noise — the same caveat as any batch-size
+    change).
 
     Default schedule from the measured cartpole-swing-up distribution
     (done-fraction ~66%% by iteration 20, ~90%% by 38): expected cost
@@ -1538,7 +1095,6 @@ def make_scheduled_ilqr_solver(
         pred_core, cost, H=H, ds=ds, dc=dc, obsdim=obsdim, dt=dt,
         ubounds=ubounds, max_iter=max_iter, return_pieces=True, **kwargs,
     )
-    ll = bool(kwargs.get("lanes_last"))
 
     def solve(params, x0s, uguess, cost_params=None):
         B = x0s.shape[0]
@@ -1568,11 +1124,9 @@ def make_scheduled_ilqr_solver(
             front_idx = perm[:B_next]
 
             def compacted(carry):
-                front = _batch_gather(carry, front_idx, B_cur,
-                                      lanes_last=ll)
+                front = _batch_gather(carry, front_idx, B_cur)
                 front = recurse(front, sched[1:])
-                return _batch_scatter(carry, front, front_idx, B_cur,
-                                      lanes_last=ll)
+                return _batch_scatter(carry, front, front_idx, B_cur)
 
             def overflow(carry):
                 # Actives don't fit this bucket: stay at the current

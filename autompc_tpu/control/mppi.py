@@ -15,7 +15,7 @@ the nominal sequence — as one fused XLA program per control step:
   (mppi.py:184-391) is superseded by ``vmap`` on one chip and
   ``shard_map`` across chips (parallel/).
 
-The TPU-native default is 4096 sampled rollouts per step (BASELINE.json
+The accelerator-native default is 4096 sampled rollouts per step (BASELINE.json
 north star); the reference's tunable range 100..1000 is kept in the
 factory space.
 """
@@ -69,12 +69,12 @@ class MPPIFactory(ControllerFactory):
 
 class MPPI(Controller):
     def __init__(self, system, task, model, **kwargs):
-        """Extra TPU-native kwargs beyond the reference's
+        """Extra accelerator-native kwargs beyond the reference's
         (mppi.py:50-63): ``mesh`` — a ``jax.sharding.Mesh`` whose FIRST
         axis shards the sampled-rollout batch across devices (the
         ``rollout`` axis of SURVEY §2c; lets num_path scale past one
-        chip's HBM/FLOPs). The path batch, noise draws, and per-path
-        costs carry sharding constraints; XLA inserts the ICI
+        device's memory and FLOPs). The path batch, noise draws, and
+        per-path costs carry sharding constraints; XLA inserts the
         collectives for the softmax-weight reduction."""
         super().__init__(system, task, model)
         self.kwargs = kwargs

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import ConfigurationSpace, UniformIntegerHyperparameter
+from ..ops.riccati import highest_precision
 from ..ops.trajqp import qp_backward, qp_forward
 from .controller import Controller, ControllerFactory
 
@@ -264,6 +265,7 @@ def make_sqp_solver(
             return (params, xs_next, us_next, lam_lo, lam_hi), merits[idx]
         return (params, xs_next, us_next), merits[idx]
 
+    @highest_precision
     def solve(params, x0, xs_guess, us_guess):
         xs = xs_guess.at[0].set(x0)
         if has_xbounds:

@@ -1,6 +1,6 @@
 """System metadata.
 
-TPU-native re-design of the reference ``System`` (reference:
+Accelerator-native re-design of the reference ``System`` (reference:
 autompc/system.py:14-90). The system is *static, hashable metadata*: under
 ``jax.jit`` everything derived from it (dimensions, label indices) is a
 compile-time constant, so it can be closed over by jitted functions and

@@ -1,7 +1,7 @@
 """Trajectory: a pytree of (obs[T, n], ctrls[T, m]) device arrays.
 
-TPU-native re-design of the reference ``Trajectory`` (reference:
-autompc/trajectory.py:6-201). Differences that matter on TPU:
+Accelerator-native re-design of the reference ``Trajectory`` (reference:
+autompc/trajectory.py:6-201). Differences that matter on an accelerator:
 
 * The arrays are JAX arrays and the object is a registered pytree, so a
   Trajectory (or a stacked batch of them, see :class:`TrajectoryBatch`)

@@ -4,7 +4,7 @@ Re-creates the reference ``Cost`` ABC (reference: autompc/costs/cost.py:
 7-255) with the same public API (``eval_obs_cost{,_diff,_hess}``,
 ``eval_ctrl_cost{,_diff,_hess}``, ``eval_term_obs_cost{,_diff,_hess}``,
 ``get_cost_matrices``, ``get_goal``, capability flags, ``+`` algebra), but
-TPU-native:
+Accelerator-native:
 
 * Every ``eval_*`` method is a **pure jax-traceable function** of a jnp
   array, usable inside ``jit`` / ``vmap`` / ``scan`` (the reference's
@@ -191,7 +191,7 @@ class Cost:
         return SumCost(self.system, [self, other])
 
     # ------------------------------------------------------------------
-    # TPU-native functional core: the controllers (iLQR/MPPI/DT) close
+    # Functional core: the controllers (iLQR/MPPI/DT) close
     # over these pure functions inside their jitted solvers.
     # ------------------------------------------------------------------
     def stage_fns(self):

@@ -110,9 +110,8 @@ def stlsq_gram(G, b, threshold, n_iters=10, ridge=1e-7):
     (d, d) linear system instead of an (N, d) SVD. The joint tuning
     fan-out trains HUNDREDS of candidate lanes against the SAME staged
     data matrix (only the threshold varies per lane), so G/b stage once
-    and the per-lane cost drops from O(N d^2) SVDs to O(d^3) solves —
-    measured 512-lane cartpole training 3,860 ms -> the closed loop's
-    noise floor (tools/profile_joint_fanout.py).
+    and the per-lane cost drops from O(N d^2) SVDs to O(d^3) solves
+    (tools/profile_joint_fanout.py times the phases).
 
     Support masking zeroes the pruned rows/columns of G and puts 1 on
     their diagonal (with the right-hand side masked, pruned coords
@@ -122,9 +121,8 @@ def stlsq_gram(G, b, threshold, n_iters=10, ridge=1e-7):
     scaling tames most of the squared conditioning the normal
     equations introduce in f32; ``ridge`` is then relative to the unit
     diagonal. The scaled system is SPD, so the solve is CHOLESKY + two
-    triangular solves — measured 15x faster than LU on TPU for the
-    batched (55, 55) shape (42.9 vs 652 ms at 512 lanes x 4 cols x 11
-    iters). A lane whose masked Gram loses positive-definiteness
+    triangular solves, cheaper than LU for the batched (55, 55) shape.
+    A lane whose masked Gram loses positive-definiteness
     despite scaling + ridge produces NaNs -> an empty support -> zero
     coefficients, which downstream scores the candidate ``inf`` (the
     bad-config contract, reference pipeline_tuner.py:236-239).

@@ -1,238 +1,57 @@
-"""Pallas TPU kernel: batched iLQR line-search rollouts.
+"""Pallas kernel (Triton route): the fused iLQR line search for models
+linear in features.
 
-The line search rolls all ``L`` step sizes of every batched solve
-through the dynamics for the full horizon — the hot loop of the iLQR
-solve once the backward pass runs as a kernel (ops/pallas_riccati.py).
-This kernel keeps the rolling state **resident in VMEM** across the
-horizon and evaluates the dynamics features inline:
+The line search rolls all ``L`` step sizes of every lane through the
+dynamics for the whole horizon. The XLA path (``vmap(lax.scan)`` over
+alphas and lanes, control/ilqr.py) runs H sequential small steps and
+writes the whole (B, L, H+1, ds) candidate window to device memory, then
+reads it back to evaluate objectives and select. This kernel keeps the
+rollout in registers:
 
-* layout is lanes-last over the solve batch (TB = 128 lanes) with a
-  block of alphas as sublanes; the (batch-blocks x alpha-blocks) grid
-  keeps each program's VMEM footprint (notably the (H+1, ds, L_blk, TB)
-  output window) inside the 16 MB budget;
-* the model must be *linear in features* with per-scalar feature terms
-  (discrete-time SINDy/Koopman form): the library's scalar term
-  functions are traced directly over (L_blk, TB) slabs via a
-  component-indexed virtual input, so one kernel generator serves every
-  library configuration;
-* any number of control dims: control clipping and the feedback law
-  ``u_j = alpha k_j + ubar_j + K_j . (x - xbar)`` are fused into the
-  same step, one register slab per control component.
+* one program owns a block of TB batch lanes; the alphas are a second
+  block axis, padded to a power of two, so each state component is an
+  (Lp, TB) slab and the horizon is a ``fori_loop`` inside the program;
+* pass 1 rolls every alpha and accumulates the quadratic objective
+  ``dt * sum((x-g)'Q(x-g) + u'Ru) + (x_H-g)'F(x_H-g)`` in registers;
+* the reference acceptance rule (autompc/control/ilqr.py:208-233: the
+  first alpha passing the expected-reduction test, else the objective
+  argmin, with the worsens-by-more-than-1e-3 failure case) runs on the
+  (Lp, TB) objectives;
+* pass 2 re-rolls only the selected alpha and writes the accepted
+  trajectory and, when the library has analytic term gradients
+  (``FeatureLibrary.grad_terms``), the dynamics Jacobians along it, so
+  the relinearization phase needs no separate pass.
 
-Matches ``make_ilqr_solver``'s vmapped line search up to f32
-reassociation (tests pin it against the scan path).
+The model must be linear in features with per-scalar term functions
+(discrete-time SINDy/Koopman form ``x' = coeffs @ theta(x, u)``): the
+library's term functions are traced directly over the slabs. Inputs and
+outputs use the solver's batch-major layout.
+
+Correctness is pinned to the XLA line search by tests (interpret mode on
+the CPU) and by ``chip_smoke.py`` on the GPU.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from .pallas_riccati import pad_batch
+
+# Lanes per program and warps per program: a program's slabs are
+# (Lp, BLOCK_B) = (16, 32) at the reference's 10 alphas.
+BLOCK_B = 32
+NUM_WARPS = 4
 
 
-class _VecZ:
-    """Component-indexed virtual input: term functions written against a
-    scalar vector ``z`` (z[i] -> scalar) evaluate over (L_blk, TB)
-    slabs."""
-
-    def __init__(self, comps):
-        self._comps = comps
-
-    def __getitem__(self, i):
-        return self._comps[i]
-
-
-def _ls_kernel(term_fns, ds, dc, H, L_blk,
-               x0_ref, xs_ref, us_ref, Ks_ref, ks_ref, coeffs_ref,
-               alphas_ref, umin_ref, umax_ref,
-               out_xs_ref, out_us_ref):
-    """Block shapes (lanes last):
-    x0 (ds, TB), xs (H, ds, TB), us (H, dc, TB), Ks (H, dc, ds, TB),
-    ks (H, dc, TB), coeffs (ds, F) [SMEM], alphas (L, 1) [SMEM],
-    umin/umax (dc, 1) [SMEM],
-    outs: out_xs (H+1, L_blk, ds, TB), out_us (H, L_blk, dc, TB)."""
-    TB = x0_ref.shape[-1]
-    F = coeffs_ref.shape[1]
-    l0 = pl.program_id(1) * L_blk
-    alphas = [alphas_ref[l0 + l, 0] for l in range(L_blk)]
-
-    # x state: list of ds arrays, each (L_blk, TB).
-    x = [
-        jnp.broadcast_to(x0_ref[i][None, :], (L_blk, TB)) for i in range(ds)
-    ]
-    for i in range(ds):
-        out_xs_ref[0, :, i] = x[i]
-
-    alpha_col = jnp.stack(alphas)[:, None]  # (L_blk, 1)
-    umin = [umin_ref[j, 0] for j in range(dc)]
-    umax = [umax_ref[j, 0] for j in range(dc)]
-
-    def body(t, x_tuple):
-        x = list(x_tuple)
-        xbar = [xs_ref[t, i] for i in range(ds)]   # (TB,)
-
-        # u_j = alpha*k_j + ubar_j + K_j.(x - xbar), clipped.
-        dx = [x[i] - xbar[i][None, :] for i in range(ds)]
-        u = []
-        for j in range(dc):
-            fb = sum(Ks_ref[t, j, i][None, :] * dx[i] for i in range(ds))
-            uj = alpha_col * ks_ref[t, j][None, :] + us_ref[t, j][None, :] + fb
-            u.append(jnp.clip(uj, umin[j], umax[j]))
-
-        # Features over z = [x..., u...] as (L_blk, TB) slabs.
-        z = _VecZ(x + u)
-        theta = [fn(z) for fn in term_fns]  # F slabs
-
-        def tree_sum(vals):
-            # Balanced summation: sequential left-fold over ~55 f32
-            # terms loses enough precision to visibly change iLQR
-            # convergence rates vs the XLA scan path.
-            while len(vals) > 1:
-                nxt = [
-                    vals[i] + vals[i + 1]
-                    for i in range(0, len(vals) - 1, 2)
-                ]
-                if len(vals) % 2:
-                    nxt.append(vals[-1])
-                vals = nxt
-            return vals[0]
-
-        x_new = [
-            tree_sum([coeffs_ref[i, k] * theta[k] for k in range(F)])
-            for i in range(ds)
-        ]
-
-        for i in range(ds):
-            out_xs_ref[t + 1, :, i] = x_new[i]
-        for j in range(dc):
-            out_us_ref[t, :, j] = u[j]
-        return tuple(x_new)
-
-    jax.lax.fori_loop(0, H, body, tuple(x))
-
-
-@functools.partial(
-    jax.jit, static_argnames=("term_fns", "block_b", "block_l", "interpret")
-)
-def pallas_sindy_line_search(
-    term_fns, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
-    block_b: int = 128, block_l: int = 5, interpret: bool = False,
-):
-    """Batched line-search rollouts for a linear-in-features model.
-
-    Parameters
-    ----------
-    term_fns : tuple of scalar term functions (FeatureLibrary._fns) —
-        static (hashable) so each library compiles its own kernel
-    x0 : (B, ds), xs : (B, H+1, ds), us : (B, H, dc),
-    Ks : (B, H, dc, ds), ks : (B, H, dc),
-    coeffs : (ds, F) shared across lanes, or (B, ds, F) PER-LANE
-        coefficients (the joint tuning fan-out trains one model per
-        candidate lane; per-lane coeffs ride VMEM lanes-last instead of
-        SMEM — the kernel body is identical, each (i, k) read is a
-        (TB,) lane vector instead of a scalar),
-    alphas : (L,), umin/umax : scalars or (dc,) vectors
-    block_b : lanes per program (TPU requires a multiple of 128 or the
-        full batch)
-    block_l : alphas per program (controls the VMEM output window)
-
-    Returns (ls_xs (B, L, H+1, ds), ls_us (B, L, H, dc)).
-    """
-    B, Hp1, ds = xs.shape
-    H = Hp1 - 1
-    dc = us.shape[-1]
-    L = alphas.shape[0]
-    TB = min(block_b, B)
-    if B % TB != 0:
-        raise ValueError(f"batch {B} not divisible by block {TB}")
-    L_blk = min(block_l, L)
-    if L % L_blk != 0:
-        raise ValueError(f"alphas {L} not divisible by block {L_blk}")
-
-    x0T = jnp.transpose(x0, (1, 0))                    # (ds, B)
-    xsT = jnp.transpose(xs[:, :H], (1, 2, 0))          # (H, ds, B)
-    usT = jnp.transpose(us, (1, 2, 0))                 # (H, dc, B)
-    KsT = jnp.transpose(Ks, (1, 2, 3, 0))              # (H, dc, ds, B)
-    ksT = jnp.transpose(ks, (1, 2, 0))                 # (H, dc, B)
-    alphas2 = alphas[:, None].astype(xs.dtype)
-    umin2 = jnp.broadcast_to(
-        jnp.asarray(umin, dtype=xs.dtype).reshape(-1, 1), (dc, 1)
-    )
-    umax2 = jnp.broadcast_to(
-        jnp.asarray(umax, dtype=xs.dtype).reshape(-1, 1), (dc, 1)
-    )
-
-    kernel = functools.partial(_ls_kernel, term_fns, ds, dc, H, L_blk)
-    grid = (B // TB, L // L_blk)
-
-    def vspec(prefix):
-        nd = len(prefix)
-        return pl.BlockSpec(
-            prefix + (TB,), lambda i, j, nd=nd: (0,) * nd + (i,),
-            memory_space=pltpu.VMEM,
-        )
-
-    def sspec(shape):
-        return pl.BlockSpec(shape, lambda i, j: (0,) * len(shape),
-                            memory_space=pltpu.SMEM)
-
-    if coeffs.ndim == 3:
-        # Per-lane coefficients: lanes-last (ds, F, B) VMEM blocks.
-        coeffs_in = jnp.transpose(coeffs, (1, 2, 0)).astype(xs.dtype)
-        coeffs_spec = vspec(coeffs.shape[1:])
-    else:
-        coeffs_in = coeffs.astype(xs.dtype)
-        coeffs_spec = sspec(coeffs.shape)
-
-    out_xsT, out_usT = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            vspec((ds,)), vspec((H, ds)), vspec((H, dc)),
-            vspec((H, dc, ds)), vspec((H, dc)),
-            coeffs_spec, sspec((L, 1)),
-            sspec((dc, 1)), sspec((dc, 1)),
-        ],
-        out_specs=(
-            # ds (== full dim) sits second-to-last so the Mosaic tiling
-            # constraint (last two dims div (8,128) or full) is met with
-            # a partial alpha block.
-            pl.BlockSpec(
-                (H + 1, L_blk, ds, TB),
-                lambda i, j: (0, j, 0, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (H, L_blk, dc, TB),
-                lambda i, j: (0, j, 0, i),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((H + 1, L, ds, B), xs.dtype),
-            jax.ShapeDtypeStruct((H, L, dc, B), xs.dtype),
-        ),
-        interpret=interpret,
-    )(x0T, xsT, usT, KsT, ksT, coeffs_in, alphas2,
-      umin2, umax2)
-
-    ls_xs = jnp.transpose(out_xsT, (3, 1, 0, 2))       # (B, L, H+1, ds)
-    ls_us = jnp.transpose(out_usT, (3, 1, 0, 2))       # (B, L, H, dc)
-    return ls_xs, ls_us
-
-
-# ---------------------------------------------------------------------------
-# Fused line search + quadratic objective + acceptance selection
-# ---------------------------------------------------------------------------
-
-
-def _tree_sum(vals):
-    """Balanced summation (f32 left-folds over many terms visibly change
-    iLQR convergence vs the XLA scan path)."""
+def tree_sum(vals):
+    """Balanced summation: a sequential left fold over ~55 float32 terms
+    loses enough precision to visibly change iLQR convergence."""
+    vals = list(vals)
     while len(vals) > 1:
         nxt = [vals[i] + vals[i + 1] for i in range(0, len(vals) - 1, 2)]
         if len(vals) % 2:
@@ -241,337 +60,183 @@ def _tree_sum(vals):
     return vals[0]
 
 
+class _VecZ:
+    """Component-indexed virtual input: term functions written against a
+    vector ``z`` (z[i] -> scalar) evaluate over lane slabs."""
+
+    def __init__(self, comps):
+        self._comps = comps
+
+    def __getitem__(self, i):
+        return self._comps[i]
+
+
 def _fused_kernel(term_fns, grad_terms, ds, dc, obsdim, H, L, dt,
-                  ls_thresh, diag_cost, has_reg, dc1_io, carry_update,
-                  *refs):
-    """One batch block; ALL alphas live in this program as sublanes.
-
-    Pass 1 rolls all L candidate step sizes, accumulating the quadratic
-    objective dt*((x-g)'Q(x-g) + u'Ru) + terminal (x-g)'F(x-g) in
-    registers — no per-alpha trajectories ever leave VMEM. The
-    reference's acceptance rule (ilqr.py:208-233: first alpha passing
-    the 0.3 expected-reduction test, else the objective argmin, with the
-    worsens-by->1e-3 failure case) then runs on (L, TB) slabs, and pass
-    2 re-rolls only the selected alpha to emit the accepted trajectory.
-
-    When ``grad_terms`` is given (sparse analytic term gradients,
-    FeatureLibrary.grad_terms), pass 2 ALSO emits the dynamics Jacobians
-    ``coeffs @ dTheta/dz`` at every step of the selected trajectory into
-    ``jac_ref`` (H, ds*(ds+dc), TB) packed — the relinearization phase of the
-    iLQR body fused into the re-roll that already has (x_t, u_t) in
-    registers (same math as ops/pallas_relin.py's sparse path, minus its
-    separate dispatch and its HBM re-read of the accepted trajectory).
-
-    ``has_reg`` appends three more inputs — regS (obsdim, obsdim) SMEM,
-    regmu (obsdim, 1) SMEM, regw (1, TB) VMEM lane plane — adding the
-    per-lane-weighted shared dense stage term
-    ``regw * (x - regmu)' regS (x - regmu)`` to the in-kernel objective
-    (the GaussRegFactory term of a SumCost candidate batch).
-
-    ``dc1_io`` (dc == 1 only): the control-shaped streams drop their
-    unit dc dim — us/ks/out_us (H, TB) and Ks (H, ds, TB) — so their
-    sublane dim is H instead of 1-padded-to-8 (an 8x stream-bytes
-    saving on each of them).
-
-    The Jacobian output (``grad_terms``) is always PACKED: jac_ref
-    (H, ds*(ds+dc), TB) with row i*(ds+dc)+dd — sublane-dense (20 rows
-    at ds=4,dc=1 vs 4x8 padded for (H, ds, d, TB)), and exactly the
-    layout ``pallas_tvlqr_backward_quad_ll`` consumes.
-
-    ``carry_update`` (lanes-last path): the iLQR body's carry-select
-    semantics move INTO the kernel — extra inputs act (1, TB) and (if
-    grad_terms) the PREVIOUS jac plane; outputs become the final carry
-    values (active & not-failed lanes take the new trajectory/obj,
-    successful ones the new jac; everything else writes the old value
-    back), plus a du2 (1, TB) output (sum over t of |u_sel - u_old|^2,
-    the convergence test's norm) — this deletes the body's separate
-    elementwise where-passes over the (H, ...) carry arrays, which at
-    headline batch rival a kernel's own streams.
-    """
-    (x0_ref, xs_ref, us_ref, Ks_ref, ks_ref, coeffs_ref,
-     alphas_ref, umin_ref, umax_ref,
-     Q_ref, R_ref, F_ref, goal_ref,
-     obj0_ref, lin_ref, quad_ref, kssmall_ref) = refs[:17]
-    n_in = 17
+                  ls_thresh, diag_cost, per_lane_coeffs, has_reg, *refs):
+    """Block shapes (batch-major, TB lanes):
+    x0 (TB, ds), xs (TB, H+1, ds), us (TB, H, dc), Ks (TB, H, dc, ds),
+    ks (TB, H, dc), coeffs (ds, F) or per lane (TB, ds, F),
+    umin/umax (dc,), alphas/lidx (Lp,),
+    Q/F (TB, obsdim) and R (TB, dc) when ``diag_cost`` else shared
+    (obsdim, obsdim)/(dc, dc), goal (obsdim,),
+    obj0/lin/quad/ks_small (TB,) [+ regS (obsdim, obsdim), regmu
+    (obsdim,), regw (TB,)];
+    outs xs (TB, H+1, ds), us (TB, H, dc), obj/succ/fail (TB,)
+    [+ Jx (TB, H, ds, ds), Ju (TB, H, ds, dc)]."""
+    (x0_ref, xs_ref, us_ref, Ks_ref, ks_ref, coeffs_ref, umin_ref,
+     umax_ref, alpha_ref, lidx_ref, Q_ref, R_ref, F_ref, goal_ref,
+     obj0_ref, lin_ref, quad_ref, kssmall_ref) = refs[:18]
+    n_in = 18
     if has_reg:
-        regS_ref, regmu_ref, regw_ref = refs[17:20]
-        n_in = 20
-    act_ref = oldjac_ref = None
-    if carry_update:
-        act_ref = refs[n_in]
-        n_in += 1
-        if grad_terms is not None:
-            oldjac_ref = refs[n_in]
-            n_in += 1
+        regS_ref, regmu_ref, regw_ref = refs[18:21]
+        n_in = 21
     (out_xs_ref, out_us_ref, out_obj_ref, out_succ_ref,
      out_fail_ref) = refs[n_in:n_in + 5]
-    nxt = n_in + 5
-    jac_ref = None
     if grad_terms is not None:
-        jac_ref = refs[nxt]
-        nxt += 1
-    du2_ref = refs[nxt] if carry_update else None
+        jx_ref, ju_ref = refs[n_in + 5:n_in + 7]
 
-    TB = x0_ref.shape[-1]
-    F_feat = coeffs_ref.shape[1]
-    alphas = [alphas_ref[l, 0] for l in range(L)]
-    alpha_col = jnp.stack(alphas)[:, None]             # (L, 1)
-    umin = [umin_ref[j, 0] for j in range(dc)]
-    umax = [umax_ref[j, 0] for j in range(dc)]
-    goal = [goal_ref[i, 0] for i in range(obsdim)]
+    n_feat = coeffs_ref.shape[-1]
+    alpha_col = alpha_ref[...][:, None]                 # (Lp, 1)
+    lidx = lidx_ref[...][:, None]                       # (Lp, 1)
+    umin = [umin_ref[j] for j in range(dc)]
+    umax = [umax_ref[j] for j in range(dc)]
+    goal = [goal_ref[i] for i in range(obsdim)]
+    if diag_cost:
+        Qd = [Q_ref[:, i] for i in range(obsdim)]
+        Rd = [R_ref[:, j] for j in range(dc)]
+        Fd = [F_ref[:, i] for i in range(obsdim)]
+    if not per_lane_coeffs:
+        cf = [[coeffs_ref[i, k] for k in range(n_feat)] for i in range(ds)]
+    if has_reg:
+        regmu = [regmu_ref[i] for i in range(obsdim)]
+        regw = regw_ref[...]
 
-    def controls(x, xbar_t, ubar_t, K_t, k_t, alpha):
-        """Feedback + clip for one step; x is a list of per-component
-        slabs, alpha broadcasts against them."""
-        dx = [x[i] - xbar_t[i] for i in range(ds)]
+    def coeffs():
+        if per_lane_coeffs:
+            return [[coeffs_ref[:, i, k] for k in range(n_feat)]
+                    for i in range(ds)]
+        return cf
+
+    def quad_form(vec, diag, M_ref, n):
+        if diag_cost:
+            return tree_sum([diag[i] * vec[i] * vec[i] for i in range(n)])
+        return tree_sum([M_ref[i, j] * vec[i] * vec[j]
+                         for i in range(n) for j in range(n)])
+
+    def controls(x, t, alpha):
+        """Feedback law + clip: u_j = alpha k_j + ubar_j + K_j.(x - xbar)."""
+        dx = [x[i] - xs_ref[:, t, i] for i in range(ds)]
         u = []
         for j in range(dc):
-            fb = _tree_sum([K_t[j][i] * dx[i] for i in range(ds)])
-            uj = alpha * k_t[j] + ubar_t[j] + fb
-            u.append(jnp.clip(uj, umin[j], umax[j]))
+            fb = tree_sum([Ks_ref[:, t, j, i] * dx[i] for i in range(ds)])
+            uj = alpha * ks_ref[:, t, j] + us_ref[:, t, j] + fb
+            u.append(jnp.minimum(jnp.maximum(uj, umin[j]), umax[j]))
         return u
 
-    def quad_form(vec, M_ref, n):
-        if diag_cost:
-            # Per-lane DIAGONAL cost: M_ref is an (n, TB) VMEM plane,
-            # each row a lane-vector of diagonal entries (the
-            # QuadCostFactory search space — the joint tuning fan-out's
-            # per-candidate costs).
-            return _tree_sum(
-                [M_ref[i] * vec[i] * vec[i] for i in range(n)]
-            )
-        terms = []
-        for i in range(n):
-            for j in range(n):
-                terms.append(M_ref[i, j] * vec[i] * vec[j])
-        return _tree_sum(terms)
+    def step_dynamics(x, u, c):
+        theta = [fn(_VecZ(x + u)) for fn in term_fns]
+        return [tree_sum([c[i][k] * theta[k] for k in range(n_feat)])
+                for i in range(ds)]
 
-    def step_dynamics(x, u):
-        z = _VecZ(x + u)
-        theta = [fn(z) for fn in term_fns]
-        return [
-            _tree_sum([coeffs_ref[i, k] * theta[k] for k in range(F_feat)])
-            for i in range(ds)
-        ]
-
-    # ---- pass 1: all alphas, objective only -------------------------
-    x = [
-        jnp.broadcast_to(x0_ref[i][None, :], (L, TB)) for i in range(ds)
-    ]
-    if has_reg:
-        regmu = [regmu_ref[i, 0] for i in range(obsdim)]
-        regw_row = regw_ref[0]                             # (TB,)
-
-    def load_ctrl_row(t):
-        # Control-shaped streams: dense (H, ...) rows under dc1_io,
-        # (H, dc, ...) otherwise.
-        if dc1_io:
-            ubar = [us_ref[t][None, :]]
-            K_t = [[Ks_ref[t, i][None, :] for i in range(ds)]]
-            k_t = [ks_ref[t][None, :]]
-        else:
-            ubar = [us_ref[t, j][None, :] for j in range(dc)]
-            K_t = [[Ks_ref[t, j, i][None, :] for i in range(ds)]
-                   for j in range(dc)]
-            k_t = [ks_ref[t, j][None, :] for j in range(dc)]
-        return ubar, K_t, k_t
+    # ---- pass 1: every alpha, objective only ----------------------------
+    zero_slab = jnp.zeros_like(alpha_col * x0_ref[:, 0])   # (Lp, TB)
+    x = tuple(zero_slab + x0_ref[:, i] for i in range(ds))
 
     def body1(t, carry):
-        obj = carry[-1]
         x = list(carry[:-1])
-        xbar = [xs_ref[t, i][None, :] for i in range(ds)]
-        ubar, K_t, k_t = load_ctrl_row(t)
-        u = controls(x, xbar, ubar, K_t, k_t, alpha_col)
+        obj = carry[-1]
+        u = controls(x, t, alpha_col)
         dxg = [x[i] - goal[i] for i in range(obsdim)]
-        oc = quad_form(dxg, Q_ref, obsdim)
-        cc = quad_form(u, R_ref, dc)
+        oc = quad_form(dxg, Qd if diag_cost else None, Q_ref, obsdim)
+        cc = quad_form(u, Rd if diag_cost else None, R_ref, dc)
         if has_reg:
+            # S is symmetric: the upper triangle with 2x off-diagonal.
             dxm = [x[i] - regmu[i] for i in range(obsdim)]
-            # S is symmetric: sum the upper triangle with a 2x factor
-            # off-diagonal — halves the obsdim^2 scalar SMEM reads and
-            # FMA slabs per timestep (ADVICE r2 item 2; matters at
-            # halfcheetah-scale obsdim=18: 171 vs 324 terms/step).
-            reg_terms = [
-                (1.0 if i == j else 2.0) * regS_ref[i, j]
-                * dxm[i] * dxm[j]
-                for i in range(obsdim)
-                for j in range(i, obsdim)
-            ]
-            oc = oc + regw_row * _tree_sum(reg_terms)
-        obj = obj + dt * (oc + cc)
-        x_new = step_dynamics(x, u)
-        return tuple(x_new) + (obj,)
+            oc = oc + regw * tree_sum([
+                (1.0 if i == j else 2.0) * regS_ref[i, j] * dxm[i] * dxm[j]
+                for i in range(obsdim) for j in range(i, obsdim)
+            ])
+        x_new = step_dynamics(x, u, coeffs())
+        return tuple(x_new) + (obj + dt * (oc + cc),)
 
-    out1 = jax.lax.fori_loop(
-        0, H, body1, tuple(x) + (jnp.zeros((L, TB), dtype=x[0].dtype),)
-    )
-    x_fin = list(out1[:-1])
-    objs = out1[-1]
-    dxg = [x_fin[i] - goal[i] for i in range(obsdim)]
-    objs = objs + quad_form(dxg, F_ref, obsdim)        # (L, TB)
+    out1 = jax.lax.fori_loop(0, H, body1, x + (zero_slab,))
+    dxg = [out1[i] - goal[i] for i in range(obsdim)]
+    objs = out1[-1] + quad_form(dxg, Fd if diag_cost else None, F_ref,
+                                obsdim)
+    # Padded alphas never win.
+    objs = jnp.where(lidx < L, objs, jnp.inf)
 
-    # ---- acceptance selection on (TB,) lanes -------------------------
-    obj0 = obj0_ref[0]
-    lin = lin_ref[0]
-    quad = quad_ref[0]
-    ks_small = kssmall_ref[0] > 0.5
+    # ---- acceptance rule on (Lp, TB) slabs ------------------------------
+    obj0 = obj0_ref[...]
+    ks_small = kssmall_ref[...] > 0.5
+    denom = -(alpha_col * lin_ref[...]
+              + alpha_col * alpha_col * quad_ref[...] * 0.5)
+    ratio = jnp.where(jnp.abs(denom) > 1e-30, (obj0 - objs) / denom,
+                      -jnp.inf)
+    accept = (ratio > ls_thresh) & (lidx < L)
+    first_acc = jnp.min(jnp.where(accept, lidx, float(L)), axis=0)
+    any_acc = first_acc < L
+    best_val = jnp.min(objs, axis=0)
+    best_idx = jnp.min(jnp.where(objs == best_val, lidx, float(L)), axis=0)
+    zerof = jnp.zeros_like(obj0)
+    chosen = jnp.where(ks_small, zerof,
+                       jnp.where(any_acc, first_acc, best_idx))
+    idx_last = jnp.where(ks_small, zerof,
+                         jnp.where(any_acc, first_acc, float(L - 1)))
 
-    obj_l = [objs[l] for l in range(L)]
-    accept = []
-    for l in range(L):
-        expect = alphas[l] * lin + (alphas[l] ** 2) * quad * 0.5
-        denom = -expect
-        ratio = jnp.where(
-            jnp.abs(denom) > 1e-30, (obj0 - obj_l[l]) / denom, -jnp.inf
-        )
-        accept.append(ratio > ls_thresh)
-    any_acc = accept[0]
-    for l in range(1, L):
-        any_acc = any_acc | accept[l]
-    # First acceptor (float indices: exact for L <= 2**24).
-    first_acc = jnp.full((TB,), float(L), dtype=obj0.dtype)
-    for l in range(L - 1, -1, -1):
-        first_acc = jnp.where(accept[l], float(l), first_acc)
-    # Objective argmin.
-    best_idx = jnp.zeros((TB,), dtype=obj0.dtype)
-    best_val = obj_l[0]
-    for l in range(1, L):
-        better = obj_l[l] < best_val
-        best_idx = jnp.where(better, float(l), best_idx)
-        best_val = jnp.where(better, obj_l[l], best_val)
+    def pick(slab, idx):
+        return jnp.sum(jnp.where(lidx == idx, slab, 0.0), axis=0)
 
-    zerof = jnp.zeros((TB,), dtype=obj0.dtype)
-    chosen = jnp.where(
-        ks_small, zerof, jnp.where(any_acc, first_acc, best_idx)
-    )
-    idx_last = jnp.where(
-        ks_small, zerof, jnp.where(any_acc, first_acc, float(L - 1))
-    )
-
-    def gather_obj(idx):
-        v = obj_l[0]
-        for l in range(1, L):
-            v = jnp.where(idx == float(l), obj_l[l], v)
-        return v
-
-    chosen_obj = gather_obj(chosen)
+    chosen_obj = pick(objs, chosen)
+    last_obj = pick(objs, idx_last)
     ls_success = (chosen_obj < obj0) | ks_small
-    last_obj = gather_obj(idx_last)
     failed = (~ls_success) & (last_obj > obj0 + 1e-3)
     sel = jnp.where(ls_success, chosen, idx_last)
-    new_obj = jnp.where(ls_success, chosen_obj, last_obj)
+    out_obj_ref[...] = jnp.where(ls_success, chosen_obj, last_obj)
+    out_succ_ref[...] = ls_success.astype(obj0.dtype)
+    out_fail_ref[...] = failed.astype(obj0.dtype)
+    a_sel = pick(zero_slab + alpha_col, sel)            # (TB,)
 
-    alpha_sel = jnp.full((TB,), 0.0, dtype=obj0.dtype)
-    for l in range(L):
-        alpha_sel = jnp.where(sel == float(l), alphas[l], alpha_sel)
-
-    if carry_update:
-        act = act_ref[0] > 0.5
-        traj_mask = act & ~failed                       # upd(new, old)
-        jac_mask = traj_mask & ls_success
-        out_obj_ref[0] = jnp.where(traj_mask, new_obj, obj0)
-    else:
-        traj_mask = jac_mask = None
-        out_obj_ref[0] = new_obj
-    out_succ_ref[0] = ls_success.astype(new_obj.dtype)
-    out_fail_ref[0] = failed.astype(new_obj.dtype)
-
-    # ---- pass 2: re-roll only the selected alpha ---------------------
-    a_sel = alpha_sel[None, :]                         # (1, TB)
-    x2 = [x0_ref[i][None, :] for i in range(ds)]
+    # ---- pass 2: re-roll the selected alpha -----------------------------
+    x2 = tuple(x0_ref[:, i] for i in range(ds))
     for i in range(ds):
-        if carry_update:
-            out_xs_ref[0, i] = jnp.where(traj_mask, x2[i][0],
-                                         xs_ref[0, i])
-        else:
-            out_xs_ref[0, i] = x2[i][0]
+        out_xs_ref[:, 0, i] = x2[i]
 
-    d = ds + dc
-
-    def body2(t, carry2):
-        if carry_update:
-            x2 = list(carry2[:-1])
-            du2 = carry2[-1]
-        else:
-            x2 = list(carry2)
-        xbar = [xs_ref[t, i][None, :] for i in range(ds)]
-        ubar, K_t, k_t = load_ctrl_row(t)
-        u = controls(x2, xbar, ubar, K_t, k_t, a_sel)
-        x_new = step_dynamics(x2, u)
+    def body2(t, x2):
+        x2 = list(x2)
+        u = controls(x2, t, a_sel)
+        c = coeffs()
+        x_new = step_dynamics(x2, u, c)
         for i in range(ds):
-            if carry_update:
-                out_xs_ref[t + 1, i] = jnp.where(
-                    traj_mask, x_new[i][0], xs_ref[t + 1, i]
-                )
-            else:
-                out_xs_ref[t + 1, i] = x_new[i][0]
-        if carry_update:
-            du2 = du2 + _tree_sum(
-                [(u[j][0] - ubar[j][0]) ** 2 for j in range(dc)]
-            )
-        if dc1_io:
-            if carry_update:
-                out_us_ref[t] = jnp.where(traj_mask, u[0][0], us_ref[t])
-            else:
-                out_us_ref[t] = u[0][0]
-        else:
-            for j in range(dc):
-                if carry_update:
-                    out_us_ref[t, j] = jnp.where(
-                        traj_mask, u[j][0], us_ref[t, j]
-                    )
-                else:
-                    out_us_ref[t, j] = u[j][0]
+            out_xs_ref[:, t + 1, i] = x_new[i]
+        for j in range(dc):
+            out_us_ref[:, t, j] = u[j]
         if grad_terms is not None:
-            # Fused relinearization: Jacobian at (x_t, u_t) — the slabs
-            # are already in registers; only terms with a nonzero
-            # partial w.r.t. each component are evaluated (same sparse
-            # formulation as ops/pallas_relin.py). Rows are PACKED:
-            # jac_ref[t, i*d + dd] (sublane-dense).
+            # Jacobian at (x_t, u_t): coeffs @ dTheta/dz, evaluating only
+            # the terms with a nonzero partial w.r.t. each component.
             z = _VecZ(x2 + u)
-            for dd in range(d):
-                slabs = [
-                    (k, gfn(z))
-                    for k, entries in enumerate(grad_terms)
-                    for (ci, gfn) in entries
-                    if ci == dd
-                ]
+            for dd in range(ds + dc):
+                parts = [(k, g(z)) for k, entries in enumerate(grad_terms)
+                         for (ci, g) in entries if ci == dd]
                 for i in range(ds):
-                    vals = [coeffs_ref[i, k] * g for k, g in slabs]
-                    total = _tree_sum(vals) if vals else 0.0
-                    row = jnp.broadcast_to(
-                        jnp.asarray(total, x2[0].dtype), x2[0].shape
-                    )[0]
-                    if carry_update:
-                        # The jac carry may be stored bf16 (see the
-                        # wrapper's jac_dtype): select in compute
-                        # precision, cast once at the store.
-                        jac_ref[t, i * d + dd] = jnp.where(
-                            jac_mask, row,
-                            oldjac_ref[t, i * d + dd].astype(row.dtype),
-                        ).astype(jac_ref.dtype)
+                    val = zerof + (
+                        tree_sum([c[i][k] * g for k, g in parts])
+                        if parts else 0.0
+                    )
+                    if dd < ds:
+                        jx_ref[:, t, i, dd] = val
                     else:
-                        jac_ref[t, i * d + dd] = row.astype(
-                            jac_ref.dtype
-                        )
-        if carry_update:
-            return tuple(x_new) + (du2,)
+                        ju_ref[:, t, i, dd - ds] = val
         return tuple(x_new)
 
-    init2 = tuple(x2)
-    if carry_update:
-        zero_du = jnp.zeros((TB,), dtype=x2[0].dtype)
-        out2 = jax.lax.fori_loop(0, H, body2, init2 + (zero_du,))
-        du2_ref[0] = out2[-1]
-    else:
-        jax.lax.fori_loop(0, H, body2, init2)
+    jax.lax.fori_loop(0, H, body2, x2)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "term_fns", "grad_terms", "dt", "ls_cost_threshold", "block_b",
-        "interpret", "per_lane_diag_cost", "ll_io", "jac_dtype",
+        "term_fns", "grad_terms", "alphas", "dt", "ls_cost_threshold",
+        "diag_cost", "interpret",
     ),
 )
 def pallas_fused_line_search(
@@ -579,672 +244,128 @@ def pallas_fused_line_search(
     Q, R, F, goal, dt, obj0, lin_red, quad_red, ks_small,
     grad_terms=None,
     ls_cost_threshold: float = 0.3,
-    block_b: int = 128, interpret: bool = False,
-    per_lane_diag_cost: bool = False,
+    diag_cost: bool = False,
     reg=None,
-    ll_io: bool = False,
-    carry=None,
-    jac_dtype=None,
+    interpret: bool = False,
 ):
     """Fused line search for linear-in-features models and quadratic
-    costs: rolls all alphas, evaluates the iLQR objective in-register,
-    applies the reference acceptance rule (ilqr.py:208-233), and emits
-    ONLY the selected trajectory — the (B, L, H, ds) candidate window
-    never touches HBM.
+    costs: rolls all alphas, evaluates the iLQR objective in registers,
+    applies the reference acceptance rule and emits only the selected
+    trajectory.
 
-    Extra parameters vs ``pallas_sindy_line_search``:
-    Q/F (obsdim, obsdim), R (dc, dc), goal (obsdim,) — the quadratic
-    cost; dt — stage-cost scale; obj0/lin_red/quad_red (B,) — current
-    objective and expected-reduction coefficients from the backward
-    pass; ks_small (B,) bool — the ||k|| < tol fast-accept flag.
+    Parameters: term_fns (the library's scalar term functions, static);
+    x0 (B, ds), xs (B, H+1, ds), us (B, H, dc), Ks (B, H, dc, ds),
+    ks (B, H, dc); coeffs (ds, F) shared or (B, ds, F) per lane;
+    alphas (static tuple of step sizes); umin/umax (dc,).
+    ``diag_cost=True``: Q/F (B, obsdim) and R (B, dc) per-lane diagonals
+    (the QuadCostFactory candidate space); otherwise shared dense
+    Q/F (obsdim, obsdim), R (dc, dc). goal (obsdim,); dt; obj0,
+    lin_red, quad_red (B,): current objective and expected-reduction
+    coefficients from the backward pass; ks_small (B,) bool: the
+    ||k|| < tol fast-accept flag.
 
-    ``grad_terms`` (optional, FeatureLibrary.grad_terms): fuse the
-    relinearization into the selected-alpha re-roll — the Jacobians of
-    the dynamics along the accepted trajectory come back as two extra
-    outputs, eliminating the separate relinearization kernel dispatch
-    from the iLQR body.
+    ``reg``: optional ``(S (obsdim, obsdim), mu (obsdim,), w (B,))``
+    adding the per-lane-weighted shared dense stage term
+    ``w * (x - mu)' S (x - mu)`` (the GaussRegFactory term of SumCost
+    candidates; S symmetric).
 
-    ``coeffs`` may be (ds, F) shared or (B, ds, F) per-lane (joint
-    tuning fan-out).  ``per_lane_diag_cost=True`` switches the cost
-    inputs to per-lane DIAGONALS — Q/F (B, obsdim), R (B, dc), shared
-    ``goal`` — the QuadCostFactory candidate space; they ride VMEM
-    lanes-last like the coefficients.
-
-    ``reg``: optional ``(S (obsdim, obsdim), mu (obsdim,), w (B,))`` —
-    adds the per-lane-weighted shared dense stage term
-    ``w * (x - mu)' S (x - mu)`` to the in-kernel objective (the
-    GaussRegFactory term of SumCost candidates; S/mu shared in SMEM,
-    w a VMEM lane plane).
+    ``grad_terms`` (optional, ``FeatureLibrary.grad_terms``): also emit
+    the dynamics Jacobians along the accepted trajectory.
 
     Returns (new_xs (B, H+1, ds), new_us (B, H, dc), new_obj (B,),
     ls_success (B,) bool, failed (B,) bool)
     [+ (Jx (B, H, ds, ds), Ju (B, H, ds, dc)) when grad_terms is given].
-
-    ``ll_io=True`` (dc == 1 only): lanes-last IO with ZERO wrapper
-    transposes — the iLQR body keeps its whole carry lanes-last.
-    Inputs: x0 (ds, B), xs (H+1, ds, B), us (H, B), Ks (H, ds, B),
-    ks (H, B); per-lane cost diagonals Q/F (obsdim, B), R (1, B); a
-    3-D ``coeffs`` is already (ds, F, B). Returns (new_xs (H+1, ds, B),
-    new_us (H, B), new_obj (B,), ls_success (B,), failed (B,)
-    [+ jac_p (H, ds*(ds+1), B) packed — feed
-    ``pallas_tvlqr_backward_quad_ll`` directly]).
-
-    ``carry`` (ll_io only): ``(act (B,) bool[, old_jac_p])`` — moves
-    the iLQR body's carry-select semantics in-kernel (see
-    ``_fused_kernel``'s carry_update doc); outputs then hold the FINAL
-    carry values and gain a trailing ``du2 (B,)`` (the convergence
-    norm's square, summed in pass 2).
     """
-    if ll_io:
-        Hp1, ds, B = xs.shape
-        dc = 1
-    else:
-        B, Hp1, ds = xs.shape
-        dc = us.shape[-1]
+    B, Hp1, ds = xs.shape
     H = Hp1 - 1
-    dc1_io = dc == 1
-    L = alphas.shape[0]
-    # Per-lane diagonals arrive (B, obsdim) batch-major but (obsdim, B)
-    # under ll_io — the trailing dim is the BATCH there.
-    obsdim = Q.shape[0] if (ll_io and per_lane_diag_cost) else Q.shape[-1]
-    TB = min(block_b, B)
-    if B % TB != 0:
-        raise ValueError(f"batch {B} not divisible by block {TB}")
-
-    if ll_io:
-        x0T, xsT, usT, KsT, ksT = x0, xs, us, Ks, ks
-    elif dc1_io:
-        # Dense dc=1 control streams: (H, B) instead of (H, 1, B),
-        # whose unit sublane dim pads 1 -> 8 (8x stream bytes).
-        x0T = jnp.transpose(x0, (1, 0))
-        xsT = jnp.transpose(xs[:, :H], (1, 2, 0))
-        usT = jnp.transpose(us[:, :, 0], (1, 0))
-        KsT = jnp.transpose(Ks[:, :, 0], (1, 2, 0))
-        ksT = jnp.transpose(ks[:, :, 0], (1, 0))
-    else:
-        x0T = jnp.transpose(x0, (1, 0))
-        xsT = jnp.transpose(xs[:, :H], (1, 2, 0))
-        usT = jnp.transpose(us, (1, 2, 0))
-        KsT = jnp.transpose(Ks, (1, 2, 3, 0))
-        ksT = jnp.transpose(ks, (1, 2, 0))
+    dc = us.shape[-1]
+    obsdim = goal.shape[0]
     dtype = xs.dtype
-    alphas2 = alphas[:, None].astype(dtype)
-    umin2 = jnp.broadcast_to(
-        jnp.asarray(umin, dtype=dtype).reshape(-1, 1), (dc, 1)
-    )
-    umax2 = jnp.broadcast_to(
-        jnp.asarray(umax, dtype=dtype).reshape(-1, 1), (dc, 1)
-    )
-    goal2 = jnp.asarray(goal, dtype=dtype).reshape(obsdim, 1)
-    row = lambda a: a[None, :].astype(dtype)  # (1, B) lanes-last
+    L = len(alphas)
+    Lp = 1 << max(0, (L - 1).bit_length())
+    TB = min(BLOCK_B, 1 << max(0, (B - 1).bit_length()))
+    per_lane_coeffs = coeffs.ndim == 3
 
-    if carry is not None and not ll_io:
-        raise ValueError("carry (in-kernel carry update) requires ll_io")
+    lane = [x0, xs, us, Ks, ks]
+    if per_lane_coeffs:
+        lane.append(coeffs.astype(dtype))
+    if diag_cost:
+        lane += [Q.astype(dtype), R.astype(dtype), F.astype(dtype)]
+    lane += [obj0.astype(dtype), lin_red.astype(dtype),
+             quad_red.astype(dtype), ks_small.astype(dtype)]
+    if reg is not None:
+        lane.append(jnp.asarray(reg[2], dtype).reshape(B))
+    lane, _ = pad_batch(lane, TB)
+    Bp = lane[0].shape[0]
+    lane = iter(lane)
+
+    def lspec(a):
+        nd = a.ndim - 1
+        return pl.BlockSpec((TB,) + a.shape[1:],
+                            lambda i, nd=nd: (i,) + (0,) * nd)
+
+    def fspec(a):
+        return pl.BlockSpec(a.shape, lambda i, nd=a.ndim: (0,) * nd)
+
+    inputs, specs = [], []
+
+    def add(a, per_lane):
+        inputs.append(a)
+        specs.append(lspec(a) if per_lane else fspec(a))
+
+    for _ in range(5):
+        add(next(lane), True)
+    add(next(lane) if per_lane_coeffs else coeffs.astype(dtype),
+        per_lane_coeffs)
+    for bound in (umin, umax):
+        add(jnp.broadcast_to(jnp.asarray(bound, dtype).reshape(-1), (dc,)),
+            False)
+    add(jnp.asarray(alphas + (0.0,) * (Lp - L), dtype), False)
+    add(jnp.arange(Lp, dtype=dtype), False)
+    if diag_cost:
+        for _ in range(3):
+            add(next(lane), True)
+    else:
+        for M in (Q, R, F):
+            add(jnp.asarray(M, dtype), False)
+    add(jnp.asarray(goal, dtype).reshape(obsdim), False)
+    for _ in range(4):
+        add(next(lane), True)
+    if reg is not None:
+        add(jnp.asarray(reg[0], dtype), False)
+        add(jnp.asarray(reg[1], dtype).reshape(obsdim), False)
+        add(next(lane), True)
+
+    out_shape = [
+        jax.ShapeDtypeStruct((Bp, H + 1, ds), dtype),
+        jax.ShapeDtypeStruct((Bp, H, dc), dtype),
+        jax.ShapeDtypeStruct((Bp,), dtype),
+        jax.ShapeDtypeStruct((Bp,), dtype),
+        jax.ShapeDtypeStruct((Bp,), dtype),
+    ]
+    if grad_terms is not None:
+        out_shape += [
+            jax.ShapeDtypeStruct((Bp, H, ds, ds), dtype),
+            jax.ShapeDtypeStruct((Bp, H, ds, dc), dtype),
+        ]
     kernel = functools.partial(
         _fused_kernel, term_fns, grad_terms, ds, dc, obsdim, H, L,
-        float(dt), float(ls_cost_threshold), bool(per_lane_diag_cost),
-        reg is not None, dc1_io, carry is not None,
+        float(dt), float(ls_cost_threshold), bool(diag_cost),
+        per_lane_coeffs, reg is not None,
     )
-    grid = (B // TB,)
-
-    def vspec(prefix):
-        nd = len(prefix)
-        return pl.BlockSpec(
-            prefix + (TB,), lambda i, nd=nd: (0,) * nd + (i,),
-            memory_space=pltpu.VMEM,
-        )
-
-    def sspec(shape):
-        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                            memory_space=pltpu.SMEM)
-
-    if coeffs.ndim == 3:
-        if ll_io:
-            coeffs_in = coeffs.astype(dtype)             # (ds, F, B)
-        else:
-            coeffs_in = jnp.transpose(coeffs, (1, 2, 0)).astype(dtype)
-        coeffs_spec = vspec(coeffs_in.shape[:2])
-    else:
-        coeffs_in = coeffs.astype(dtype)
-        coeffs_spec = sspec(coeffs.shape)
-
-    if per_lane_diag_cost:
-        if ll_io:
-            Q_in = Q.astype(dtype)                       # (obsdim, B)
-            R_in = R.astype(dtype)                       # (dc, B)
-            F_in = F.astype(dtype)
-        else:
-            Q_in = jnp.transpose(Q, (1, 0)).astype(dtype)
-            R_in = jnp.transpose(R, (1, 0)).astype(dtype)
-            F_in = jnp.transpose(F, (1, 0)).astype(dtype)
-        Q_spec, R_spec, F_spec = (
-            vspec((obsdim,)), vspec((dc,)), vspec((obsdim,))
-        )
-    else:
-        Q_in = jnp.asarray(Q, dtype=dtype)
-        R_in = jnp.asarray(R, dtype=dtype)
-        F_in = jnp.asarray(F, dtype=dtype)
-        Q_spec, R_spec, F_spec = (
-            sspec((obsdim, obsdim)), sspec((dc, dc)),
-            sspec((obsdim, obsdim)),
-        )
-
-    xs_rows = Hp1 if ll_io else H
-    if dc1_io:
-        us_spec, Ks_spec, ks_spec = (
-            vspec((H,)), vspec((H, ds)), vspec((H,))
-        )
-    else:
-        us_spec, Ks_spec, ks_spec = (
-            vspec((H, dc)), vspec((H, dc, ds)), vspec((H, dc))
-        )
-    in_specs = [
-        vspec((ds,)), vspec((xs_rows, ds)), us_spec,
-        Ks_spec, ks_spec,
-        coeffs_spec, sspec((L, 1)),
-        sspec((dc, 1)), sspec((dc, 1)),
-        Q_spec, R_spec, F_spec, sspec((obsdim, 1)),
-        vspec((1,)), vspec((1,)), vspec((1,)), vspec((1,)),
-    ]
-    inputs = [
-        x0T, xsT, usT, KsT, ksT, coeffs_in, alphas2,
-        umin2, umax2,
-        Q_in, R_in, F_in, goal2,
-        row(obj0), row(lin_red), row(quad_red),
-        row(ks_small.astype(dtype)),
-    ]
-    if reg is not None:
-        regS, regmu, regw = reg
-        in_specs += [
-            sspec((obsdim, obsdim)), sspec((obsdim, 1)), vspec((1,)),
-        ]
-        inputs += [
-            jnp.asarray(regS, dtype=dtype),
-            jnp.asarray(regmu, dtype=dtype).reshape(obsdim, 1),
-            row(regw),
-        ]
-    if carry is not None:
-        act = carry[0]
-        in_specs.append(vspec((1,)))
-        inputs.append(row(act.astype(dtype)))
-        if grad_terms is not None:
-            old_jac = carry[1]
-            in_specs.append(vspec((H, ds * (ds + dc))))
-            inputs.append(old_jac)
-
-    out_specs = [
-        vspec((H + 1, ds)),
-        vspec((H,)) if dc1_io else vspec((H, dc)),
-        vspec((1,)),
-        vspec((1,)),
-        vspec((1,)),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((H + 1, ds, B), dtype),
-        jax.ShapeDtypeStruct(
-            (H, B) if dc1_io else (H, dc, B), dtype
-        ),
-        jax.ShapeDtypeStruct((1, B), dtype),
-        jax.ShapeDtypeStruct((1, B), dtype),
-        jax.ShapeDtypeStruct((1, B), dtype),
-    ]
-    d = ds + dc
-    if grad_terms is not None:
-        # jac_dtype="bfloat16" halves the jac carry's HBM footprint
-        # and stream (the B=131072 fit, control/ilqr.py jac_dtype);
-        # the write site casts, the backward kernel upcasts on read.
-        jdt = jnp.dtype(jac_dtype) if jac_dtype is not None else dtype
-        out_specs.append(vspec((H, ds * d)))
-        out_shape.append(jax.ShapeDtypeStruct((H, ds * d, B), jdt))
-    if carry is not None:
-        out_specs.append(vspec((1,)))
-        out_shape.append(jax.ShapeDtypeStruct((1, B), dtype))
-
     outs = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=tuple(out_specs),
+        grid=(Bp // TB,),
+        in_specs=specs,
+        out_specs=tuple(lspec(s) for s in out_shape),
         out_shape=tuple(out_shape),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
         interpret=interpret,
+        name="ilqr_fused_line_search",
     )(*inputs)
-
-    out_xsT, out_usT, objT, succT, failT = outs[:5]
-    if ll_io:
-        base = (
-            out_xsT, out_usT, objT[0],
-            succT[0] > 0.5, failT[0] > 0.5,
-        )
-        if grad_terms is not None:
-            base = base + (outs[5],)                   # jac_p packed
-        if carry is not None:
-            base = base + (outs[-1][0],)               # du2 (B,)
-        return base
-    new_xs = jnp.transpose(out_xsT, (2, 0, 1))         # (B, H+1, ds)
-    if dc1_io:
-        new_us = jnp.transpose(out_usT, (1, 0))[:, :, None]
-    else:
-        new_us = jnp.transpose(out_usT, (2, 0, 1))     # (B, H, dc)
-    base = (
-        new_xs, new_us, objT[0],
-        succT[0] > 0.5, failT[0] > 0.5,
-    )
-    if grad_terms is None:
-        return base
-    jac = jnp.transpose(outs[5], (2, 0, 1)).reshape(B, H, ds, d)
-    return base + (jac[..., :ds], jac[..., ds:])
-
-
-# ---------------------------------------------------------------------------
-# WIDE line search (round 4): the whole-horizon fused kernel's slabs are
-# (L, TB) in pass 1 but (1, TB) in the re-roll/relinearization pass —
-# 1/8 vreg occupancy chained serially, the same issue-boundedness the
-# WIDE backward kernel fixed (ops/pallas_riccati.py). The fusion splits
-# into two STREAMED kernels with full (S, 128) batch tiles per op and
-# the acceptance rule between them in XLA ((L, B) arrays — trivial):
-#
-#   A `_ls_obj_kernel_wide`   — all-alphas objective sweep, forward
-#     (batch-blocks, H/T) grid, per-alpha state carried in VMEM scratch
-#     as (ds, L, S, 128); emits objs (L, B).
-#   B `_ls_reroll_kernel_wide` — selected-alpha re-roll + packed-jac
-#     relinearization + the in-kernel carry update (masks precomputed),
-#     du2 accumulation; out xs/us are whole-window revisited refs so the
-#     t+1-shifted write needs no block gymnastics.
-#
-# dc=1 only; requires grad_terms + the carry-update masks (the lanes-last
-# iLQR path). Opt-in via make_batched_ilqr_solver(ls_wide=True).
-# ---------------------------------------------------------------------------
-
-
-def _ls_obj_kernel_wide(term_fns, ds, obsdim, H, T, L, dt, diag_cost,
-                        has_plc, *refs):
-    (xs_ref, us_ref, Ks_ref, ks_ref, x0_ref, coeffs_ref, alphas_ref,
-     umin_ref, umax_ref, Q_ref, R_ref, F_ref, goal_ref) = refs[:13]
-    objs_out_ref = refs[13]
-    x_s, obj_s = refs[14:16]
-
-    nc = H // T
-    c_idx = pl.program_id(1)
-    F_feat = coeffs_ref.shape[1]
-    S, NL = xs_ref.shape[-2], xs_ref.shape[-1]
-    alphas = [alphas_ref[l, 0] for l in range(L)]
-    # Full (L, S, 128) alpha slab — (L, 1, 1) reshapes of stacked SMEM
-    # scalars are an unsupported Mosaic layout cast.
-    alpha3 = jnp.stack(
-        [jnp.full((S, NL), a, dtype=us_ref.dtype) for a in alphas]
-    )
-    umin = umin_ref[0, 0]
-    umax = umax_ref[0, 0]
-    goal = [goal_ref[i, 0] for i in range(obsdim)]
-
-    def qform(vec, M_ref, n):
-        if diag_cost:
-            return _tree_sum(
-                [M_ref[i][None] * vec[i] * vec[i] for i in range(n)]
-            )
-        terms = []
-        for i in range(n):
-            for j in range(n):
-                terms.append(M_ref[i, j] * vec[i] * vec[j])
-        return _tree_sum(terms)
-
-    def step_dyn(x, u):
-        z = _VecZ(x + u)
-        theta = [fn(z) for fn in term_fns]
-        if has_plc:
-            return [
-                _tree_sum([
-                    coeffs_ref[i, k][None] * theta[k]
-                    for k in range(F_feat)
-                ])
-                for i in range(ds)
-            ]
-        return [
-            _tree_sum([
-                coeffs_ref[i, k] * theta[k] for k in range(F_feat)
-            ])
-            for i in range(ds)
-        ]
-
-    @pl.when(c_idx == 0)
-    def _init():
-        x_s[...] = jnp.stack(
-            [
-                jnp.broadcast_to(x0_ref[i][None], (L, S, NL))
-                for i in range(ds)
-            ]
-        )
-        obj_s[...] = jnp.zeros((L, S, NL), dtype=us_ref.dtype)
-
-    xw = x_s[...]
-    x = [xw[i] for i in range(ds)]                     # (L, S, 128)
-    obj = obj_s[...]
-    for tt in range(T):
-        xbar = [xs_ref[tt, i][None] for i in range(ds)]
-        ubar = us_ref[tt][None]
-        k_t = ks_ref[tt][None]
-        dx = [x[i] - xbar[i] for i in range(ds)]
-        fb = _tree_sum(
-            [Ks_ref[tt, i][None] * dx[i] for i in range(ds)]
-        )
-        u = jnp.clip(alpha3 * k_t + ubar + fb, umin, umax)
-        dxg = [x[i] - goal[i] for i in range(obsdim)]
-        oc = qform(dxg, Q_ref, obsdim)
-        cc = qform([u], R_ref, 1)
-        obj = obj + dt * (oc + cc)
-        x = step_dyn(x, [u])
-
-    @pl.when(c_idx == nc - 1)
-    def _fin():
-        dxg = [x[i] - goal[i] for i in range(obsdim)]
-        objs_out_ref[...] = obj + qform(dxg, F_ref, obsdim)
-
-    x_s[...] = jnp.stack(x)
-    obj_s[...] = obj
-
-
-def _ls_reroll_kernel_wide(term_fns, grad_terms, ds, obsdim, H, T,
-                           has_plc, *refs):
-    (xs_ref, xlast_ref, us_ref, Ks_ref, ks_ref, oldjac_ref, x0_ref,
-     coeffs_ref, asel_ref, tmask_ref, jmask_ref, umin_ref,
-     umax_ref) = refs[:13]
-    (oxs_ref, oxl_ref, ous_ref, jac_ref, du2_ref, x_s) = refs[13:19]
-
-    nc = H // T
-    c_idx = pl.program_id(1)
-    F_feat = coeffs_ref.shape[1]
-    umin = umin_ref[0, 0]
-    umax = umax_ref[0, 0]
-    a_sel = asel_ref[0]                                # (S, 128)
-    tmask = tmask_ref[0] > 0.5
-    jmask = jmask_ref[0] > 0.5
-    d = ds + 1
-
-    def step_dyn(x, u):
-        z = _VecZ(x + u)
-        theta = [fn(z) for fn in term_fns]
-        return [
-            _tree_sum([
-                coeffs_ref[i, k] * theta[k] for k in range(F_feat)
-            ])
-            for i in range(ds)
-        ]
-
-    # All reads/writes are BLOCK-relative: row t of the new trajectory
-    # is written BEFORE stepping (so there is no t+1-shifted write and
-    # every block is an aligned (T, ...) slice); the terminal row goes
-    # out through the separate ``oxl`` output at the last cell.
-    @pl.when(c_idx == 0)
-    def _init():
-        x_s[...] = x0_ref[...]
-        du2_ref[0] = jnp.zeros_like(us_ref[0])
-
-    xw = x_s[...]
-    x = [xw[i] for i in range(ds)]                     # (S, 128)
-    du2 = du2_ref[0]
-    for tt in range(T):
-        for i in range(ds):
-            oxs_ref[tt, i] = jnp.where(tmask, x[i], xs_ref[tt, i])
-        xbar = [xs_ref[tt, i] for i in range(ds)]
-        ubar = us_ref[tt]
-        dx = [x[i] - xbar[i] for i in range(ds)]
-        fb = _tree_sum([Ks_ref[tt, i] * dx[i] for i in range(ds)])
-        u = jnp.clip(a_sel * ks_ref[tt] + ubar + fb, umin, umax)
-        du2 = du2 + (u - ubar) ** 2
-        ous_ref[tt] = jnp.where(tmask, u, ubar)
-        # Packed-jac relinearization at (x_t, u_t), sparse term grads.
-        z = _VecZ(x + [u])
-        for dd in range(d):
-            slabs = [
-                (k, gfn(z))
-                for k, entries in enumerate(grad_terms)
-                for (ci, gfn) in entries
-                if ci == dd
-            ]
-            for i in range(ds):
-                vals = [coeffs_ref[i, k] * g for k, g in slabs]
-                total = _tree_sum(vals) if vals else 0.0
-                row = jnp.broadcast_to(
-                    jnp.asarray(total, x[0].dtype), x[0].shape
-                )
-                jac_ref[tt, i * d + dd] = jnp.where(
-                    jmask, row,
-                    oldjac_ref[tt, i * d + dd].astype(row.dtype),
-                ).astype(jac_ref.dtype)
-        x = step_dyn(x, [u])
-    du2_ref[0] = du2
-    x_s[...] = jnp.stack(x)
-
-    @pl.when(c_idx == nc - 1)
-    def _fin():
-        for i in range(ds):
-            oxl_ref[i] = jnp.where(tmask, x[i], xlast_ref[i])
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "term_fns", "grad_terms", "dt", "ls_cost_threshold",
-        "interpret", "per_lane_diag_cost",
-    ),
-)
-def pallas_fused_line_search_wide(
-    term_fns, x0, xs, us, Ks, ks, coeffs, alphas, umin, umax,
-    Q, R, F, goal, dt, obj0, lin_red, quad_red, ks_small, act, old_jac,
-    grad_terms=None,
-    ls_cost_threshold: float = 0.3,
-    per_lane_diag_cost: bool = False,
-    interpret: bool = False,
-):
-    """WIDE split of ``pallas_fused_line_search(ll_io=True,
-    carry=...)`` — identical contract and return tuple (new_xs
-    (H+1, ds, B), new_us (H, B), new_obj (B,), ls_success (B,),
-    failed (B,), jac_p (H, ds*(ds+1), B), du2 (B,)); see the module
-    comment above ``_ls_obj_kernel_wide``. dc=1, grad_terms required,
-    B % 1024 == 0."""
-    Hp1, ds, B = xs.shape
-    H = Hp1 - 1
-    L = alphas.shape[0]
-    dsd = ds * (ds + 1)
-    obsdim = Q.shape[0] if per_lane_diag_cost else Q.shape[-1]
-    dtype = xs.dtype
-    if grad_terms is None:
-        raise ValueError("wide line search requires grad_terms")
-    if B % 1024 != 0:
-        raise ValueError(f"wide line search needs B % 1024 == 0, got {B}")
-    nl = B // 128
-
-    S_A = int(os.environ.get("AMPC_LS_WIDE_SA", "16"))
-    while S_A > 8 and B % (128 * S_A) != 0:
-        S_A //= 2
-    S_B = 8
-    T_A = int(os.environ.get(
-        "AMPC_LS_WIDE_TA",
-        next(t for t in (25, 20, 10, 8, 5, 4, 2, 1) if H % t == 0),
-    ))
-    T_B = int(os.environ.get(
-        "AMPC_LS_WIDE_TB",
-        next(t for t in (10, 8, 5, 4, 2, 1) if H % t == 0),
-    ))
-
-    alphas1 = jnp.asarray(alphas, dtype)[:, None]
-    umin2 = jnp.asarray(umin, dtype).reshape(-1, 1)[:1]
-    umax2 = jnp.asarray(umax, dtype).reshape(-1, 1)[:1]
-    goal2 = jnp.asarray(goal, dtype=dtype).reshape(obsdim, 1)
-    has_plc = coeffs.ndim == 3
-
-    def sspec2(shape):
-        return pl.BlockSpec(shape, lambda b, c: (0,) * len(shape),
-                            memory_space=pltpu.SMEM)
-
-    def mk_tspecT(S, T):
-        def tspec(mid):
-            nd = len(mid)
-            return pl.BlockSpec(
-                (T,) + mid + (S, 128),
-                lambda b, c, nd=nd: (c,) + (0,) * nd + (b, 0),
-                memory_space=pltpu.VMEM,
-            )
-        return tspec
-
-    def mk_cspec(S):
-        def cspec(prefix):
-            nd = len(prefix)
-            return pl.BlockSpec(
-                prefix + (S, 128),
-                lambda b, c, nd=nd: (0,) * nd + (b, 0),
-                memory_space=pltpu.VMEM,
-            )
-        return cspec
-
-    # ---- kernel A: all-alphas objective sweep -----------------------
-    tsA = mk_tspecT(S_A, T_A)
-    csA = mk_cspec(S_A)
-    if has_plc:
-        coeffs_in = coeffs.astype(dtype).reshape(
-            ds, coeffs.shape[1], nl, 128
-        )
-        coeffs_spec_A = csA((ds, coeffs.shape[1]))
-    else:
-        coeffs_in = coeffs.astype(dtype)
-        coeffs_spec_A = sspec2(coeffs.shape)
-    if per_lane_diag_cost:
-        Q_in = Q.astype(dtype).reshape(obsdim, nl, 128)
-        R_in = R.astype(dtype).reshape(1, nl, 128)
-        F_in = F.astype(dtype).reshape(obsdim, nl, 128)
-        QsA, RsA, FsA = csA((obsdim,)), csA((1,)), csA((obsdim,))
-    else:
-        Q_in = jnp.asarray(Q, dtype)
-        R_in = jnp.asarray(R, dtype)
-        F_in = jnp.asarray(F, dtype)
-        QsA, RsA, FsA = (
-            sspec2((obsdim, obsdim)), sspec2((1, 1)),
-            sspec2((obsdim, obsdim)),
-        )
-
-    kernel_a = functools.partial(
-        _ls_obj_kernel_wide, term_fns, ds, obsdim, H, T_A, L,
-        float(dt), bool(per_lane_diag_cost), has_plc,
-    )
-    objs4 = pl.pallas_call(
-        kernel_a,
-        grid=(B // (128 * S_A), H // T_A),
-        in_specs=[
-            tsA((ds,)), tsA(()), tsA((ds,)), tsA(()),
-            csA((ds,)), coeffs_spec_A, sspec2((L, 1)),
-            sspec2((1, 1)), sspec2((1, 1)),
-            QsA, RsA, FsA, sspec2((obsdim, 1)),
-        ],
-        out_specs=csA((L,)),
-        out_shape=jax.ShapeDtypeStruct((L, nl, 128), dtype),
-        scratch_shapes=[
-            pltpu.VMEM((ds, L, S_A, 128), dtype),
-            pltpu.VMEM((L, S_A, 128), dtype),
-        ],
-        interpret=interpret,
-    )(
-        xs[:H].reshape(H, ds, nl, 128),
-        us.reshape(H, nl, 128),
-        Ks.reshape(H, ds, nl, 128),
-        ks.reshape(H, nl, 128),
-        x0.reshape(ds, nl, 128),
-        coeffs_in, alphas1, umin2, umax2, Q_in, R_in, F_in, goal2,
-    )
-    objs = objs4.reshape(L, B)
-
-    # ---- acceptance (the reference rule, ilqr.py:208-233) on (L, B) --
-    a = jnp.asarray(alphas, dtype)
-    expect = a[:, None] * lin_red[None] + (a[:, None] ** 2) * (
-        quad_red[None] * 0.5
-    )
-    denom = -expect
-    ratio = jnp.where(
-        jnp.abs(denom) > 1e-30, (obj0[None] - objs) / denom, -jnp.inf
-    )
-    accept = ratio > ls_cost_threshold
-    any_acc = jnp.any(accept, axis=0)
-    first_acc = jnp.argmax(accept, axis=0)
-    best_idx = jnp.argmin(objs, axis=0)
-    chosen = jnp.where(
-        ks_small, 0, jnp.where(any_acc, first_acc, best_idx)
-    )
-    take = lambda idx: jnp.take_along_axis(objs, idx[None], axis=0)[0]
-    chosen_obj = take(chosen)
-    ls_success = (chosen_obj < obj0) | ks_small
-    idx_last = jnp.where(
-        ks_small, 0, jnp.where(any_acc, first_acc, L - 1)
-    )
-    last_obj = take(idx_last)
-    failed = (~ls_success) & (last_obj > obj0 + 1e-3)
-    sel = jnp.where(ls_success, chosen, idx_last)
-    new_obj_raw = jnp.where(ls_success, chosen_obj, last_obj)
-    alpha_sel = a[sel]
-    traj_mask = act & ~failed
-    jac_mask = traj_mask & ls_success
-    new_obj = jnp.where(traj_mask, new_obj_raw, obj0)
-
-    # ---- kernel B: selected-alpha re-roll + relin + carry update ----
-    S_B = int(os.environ.get("AMPC_LS_WIDE_SB", "16"))
-    while S_B > 8 and B % (128 * S_B) != 0:
-        S_B //= 2
-    tsB = mk_tspecT(S_B, T_B)
-    csB = mk_cspec(S_B)
-    coeffs_spec_B = (
-        csB((ds, coeffs.shape[1])) if has_plc
-        else sspec2(coeffs.shape)
-    )
-    kernel_b = functools.partial(
-        _ls_reroll_kernel_wide, term_fns, grad_terms, ds, obsdim, H,
-        T_B, has_plc,
-    )
-    oxs4, oxl4, ous4, jac4, du24 = pl.pallas_call(
-        kernel_b,
-        grid=(B // (128 * S_B), H // T_B),
-        in_specs=[
-            tsB((ds,)), csB((ds,)), tsB(()),
-            tsB((ds,)), tsB(()), tsB((dsd,)),
-            csB((ds,)), coeffs_spec_B,
-            csB((1,)), csB((1,)), csB((1,)),
-            sspec2((1, 1)), sspec2((1, 1)),
-        ],
-        out_specs=(
-            tsB((ds,)), csB((ds,)), tsB(()), tsB((dsd,)), csB((1,)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((H, ds, nl, 128), dtype),
-            jax.ShapeDtypeStruct((ds, nl, 128), dtype),
-            jax.ShapeDtypeStruct((H, nl, 128), dtype),
-            # jac carry keeps its own (possibly bf16) storage dtype.
-            jax.ShapeDtypeStruct((H, dsd, nl, 128), old_jac.dtype),
-            jax.ShapeDtypeStruct((1, nl, 128), dtype),
-        ),
-        scratch_shapes=[pltpu.VMEM((ds, S_B, 128), dtype)],
-        interpret=interpret,
-    )(
-        xs[:H].reshape(H, ds, nl, 128),
-        xs[H].reshape(ds, nl, 128),
-        us.reshape(H, nl, 128),
-        Ks.reshape(H, ds, nl, 128),
-        ks.reshape(H, nl, 128),
-        old_jac.reshape(H, dsd, nl, 128),
-        x0.reshape(ds, nl, 128),
-        coeffs_in if has_plc else coeffs.astype(dtype),
-        alpha_sel.astype(dtype).reshape(1, nl, 128),
-        traj_mask.astype(dtype).reshape(1, nl, 128),
-        jac_mask.astype(dtype).reshape(1, nl, 128),
-        umin2, umax2,
-    )
-    # ~1 ms concat at B=65536 — the price of keeping every kernel
-    # block an aligned (T, ...) slice (no t+1-shifted writes).
-    new_xs = jnp.concatenate(
-        [oxs4.reshape(H, ds, B), oxl4.reshape(ds, B)[None]], axis=0
-    )
-    return (
-        new_xs,
-        ous4.reshape(H, B),
-        new_obj,
-        ls_success,
-        failed,
-        jac4.reshape(H, dsd, B),
-        du24.reshape(B),
-    )
+    outs = [o[:B] for o in outs]
+    new_xs, new_us, obj, succ, fail = outs[:5]
+    return (new_xs, new_us, obj, succ > 0.5, fail > 0.5) + tuple(outs[5:])

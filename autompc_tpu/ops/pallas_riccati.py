@@ -1,1363 +1,203 @@
-"""Pallas TPU kernel: batched time-varying LQR backward pass.
+"""Pallas kernel (Triton route): batched dc=1 iLQR backward pass with
+inline diagonal-quadratic stage expansions.
 
-The iLQR/DT backward recursion (the structured factorization of the
-block-tridiagonal KKT system; SURVEY §2b, ops/riccati.py:
-tvlqr_backward_scan) is a length-H sequential chain of tiny (ds x ds)
-matrix operations. Under XLA, each scan step issues a handful of small
-ops per step; this kernel instead keeps the whole batch block **resident
-in VMEM** and runs the entire recursion as one fused Mosaic program:
+The iLQR backward recursion (ops/riccati.py:tvlqr_backward_scan) is a
+chain of H sequential steps of tiny (ds x ds) algebra per lane. Under
+``vmap(lax.scan)`` XLA runs every step as its own handful of small
+kernels, so at H=200 the pass is bound by launches and latency, not by
+the few MB it moves. This kernel is one launch per backward pass:
 
-* layout is lanes-last — every (i, j) matrix entry is a (TB,) vector of
-  batch lanes, so the 5x5-matrix algebra vectorizes across the batch on
-  the VPU instead of across the (tiny) matrix dims;
-* the control dimension is specialized to dc=1 (the dominant MPC case:
-  cartpole/pendulum benches), where the Quu solve is a reciprocal;
-* grid = batch blocks; each block's (H, ds, ds, TB) inputs are staged
-  into VMEM once, the t-loop runs with the value-function carry in
-  registers/VMEM, and gains stream back out.
+* one program owns a block of batch lanes, one lane per thread;
+  every (i, j) matrix entry is a (TB,) vector over the block's lanes,
+  so the algebra is elementwise and the control dimension is
+  specialized to dc=1 (the Quu solve is a reciprocal);
+* the horizon is a ``fori_loop`` inside the program, with the value
+  function V, v in registers;
+* inputs are read straight from the solver's batch-major carry and the
+  stage expansions of the diagonal QuadCost (value (x-g)'Q(x-g),
+  gradient 2Q(x-g), hessian 2Q, dt-scaled; costs/cost.py:62-141) are
+  computed inline from (xs, us), so no (B, H, ds, ds) expansion array
+  is materialized.
 
 Correctness is pinned to ``tvlqr_backward_scan`` by tests (interpret
-mode on CPU, compiled on TPU).
+mode on the CPU) and by ``chip_smoke.py`` on the GPU.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+# Lanes per program. One warp per program: at the compaction-shrunk
+# batch sizes the solver reaches, small programs spread the lanes over
+# more SMs.
+BLOCK_B = 32
+NUM_WARPS = 1
 
 
-def _backward_kernel(ds, H, jx_ref, ju_ref, cxx_ref, cuu_ref, cx_ref,
-                     cu_ref, vnm_ref, vnv_ref,
-                     ks_out_ref, kv_out_ref, lin_out_ref, quad_out_ref):
-    """One batch block. Shapes (lanes last, dc=1 squeezed):
-    jx (H, ds, ds, TB), ju (H, ds, TB), cxx (H, ds, ds, TB),
-    cuu (H, TB), cx (H, ds, TB), cu (H, TB), vnm (ds, ds, TB),
-    vnv (ds, TB); outs: Ks (H, ds, TB), ks (H, TB), lin/quad (1, TB)."""
-    TB = jx_ref.shape[-1]
-
-    def stack2(rows):
-        # rows: list of list of (TB,) -> (ds, ds, TB)
-        return jnp.stack([jnp.stack(r) for r in rows])
-
-    def body(i, carry):
-        t = H - 1 - i
-        V, v, lin, quad = carry
-        Jx = jx_ref[t]      # (ds, ds, TB)
-        Ju = ju_ref[t]      # (ds, TB)
-        Cxx = cxx_ref[t]
-        Cuu = cuu_ref[t]    # (TB,)
-        cx = cx_ref[t]      # (ds, TB)
-        cu = cu_ref[t]      # (TB,)
-
-        # JuV[j] = sum_k Ju[k] V[k, j]
-        JuV = [
-            sum(Ju[k] * V[k, j] for k in range(ds)) for j in range(ds)
-        ]
-        # Quu = Cuu + sum_k JuV[k] Ju[k]  (scalar per lane)
-        Quu = Cuu + sum(JuV[k] * Ju[k] for k in range(ds))
-        inv_quu = 1.0 / Quu
-        # Qux[j] = sum_k JuV[k] Jx[k, j]
-        Qux = [
-            sum(JuV[k] * Jx[k, j] for k in range(ds)) for j in range(ds)
-        ]
-        # qu = cu + Ju . v
-        qu = cu + sum(Ju[k] * v[k] for k in range(ds))
-        K = [-Qux[j] * inv_quu for j in range(ds)]
-        kff = -qu * inv_quu
-
-        lin = lin + qu * kff
-        quad = quad + kff * Quu * kff
-
-        # JxV[i][j] = sum_k Jx[k, i] V[k, j]
-        JxV = [
-            [sum(Jx[k, i_] * V[k, j] for k in range(ds)) for j in range(ds)]
-            for i_ in range(ds)
-        ]
-        # Qxx[i][j] = Cxx[i, j] + sum_k JxV[i][k] Jx[k, j]
-        Qxx = [
-            [
-                Cxx[i_, j] + sum(JxV[i_][k] * Jx[k, j] for k in range(ds))
-                for j in range(ds)
-            ]
-            for i_ in range(ds)
-        ]
-        # qx = cx + Jx' v
-        qx = [
-            cx[i_] + sum(Jx[k, i_] * v[k] for k in range(ds))
-            for i_ in range(ds)
-        ]
-        # V' = Qxx + Qux K' + K Qux' + K Quu K'  (rank-1 updates)
-        V_new = stack2(
-            [
-                [
-                    Qxx[i_][j]
-                    + Qux[i_] * K[j]
-                    + K[i_] * Qux[j]
-                    + K[i_] * K[j] * Quu
-                    for j in range(ds)
-                ]
-                for i_ in range(ds)
-            ]
-        )
-        # v' = qx + Qux k + K (qu + Quu k)
-        resid = qu + Quu * kff
-        v_new = jnp.stack(
-            [qx[i_] + Qux[i_] * kff + K[i_] * resid for i_ in range(ds)]
-        )
-
-        ks_out_ref[t] = jnp.stack(K)
-        kv_out_ref[t] = kff
-        return V_new, v_new, lin, quad
-
-    V0 = vnm_ref[...]
-    v0 = vnv_ref[...]
-    zeros = jnp.zeros((TB,), dtype=V0.dtype)
-    V, v, lin, quad = jax.lax.fori_loop(
-        0, H, body, (V0, v0, zeros, zeros)
-    )
-    lin_out_ref[0] = lin
-    quad_out_ref[0] = quad
+def pad_batch(arrays, block):
+    """Pad every array's leading (batch) axis to a multiple of
+    ``block`` by repeating the last lane; returns (padded, B)."""
+    B = arrays[0].shape[0]
+    pad = (-B) % block
+    if pad == 0:
+        return list(arrays), B
+    return [
+        jnp.concatenate([a, jnp.repeat(a[-1:], pad, axis=0)], axis=0)
+        for a in arrays
+    ], B
 
 
-def _stack2(rows):
-    return jnp.stack([jnp.stack(r) for r in rows])
+def block_for(B):
+    """Power-of-two lane block for a batch of ``B`` (Triton block
+    shapes are powers of two)."""
+    return min(BLOCK_B, 1 << max(0, (B - 1).bit_length()))
 
 
-def _bq_step(ds, obsdim, Jx, Ju, cx, cu, rd2, qd, V, v):
-    """One diagonal-quad backward-recursion step on generic batch
-    slabs — shared by the whole-horizon loop kernel (slabs are (TB,)
-    lane vectors) and the streamed WIDE kernel (slabs are full (8, 128)
-    tiles, 8x the per-instruction lanes). ``Jx`` is a nested [k][j]
-    list, ``Ju``/``cx``/``qd`` lists, ``V``/``v`` index as V[k, j] /
-    v[k]. Returns (K, kff, V_new, v_new, dlin, dquad)."""
-    JuV = [
-        sum(Ju[k] * V[k, j] for k in range(ds)) for j in range(ds)
-    ]
+def bq_step(ds, obsdim, Jx, Ju, cx, cu, rd2, qd, V, v):
+    """One diagonal-quad backward step on (TB,) lane vectors. ``Jx`` and
+    ``V`` are nested [k][j] lists, ``Ju``/``cx``/``qd``/``v`` lists.
+    Returns (K, kff, V_new, v_new, dlin, dquad) as lists/vectors."""
+    JuV = [sum(Ju[k] * V[k][j] for k in range(ds)) for j in range(ds)]
     Quu = rd2 + sum(JuV[k] * Ju[k] for k in range(ds))
     inv_quu = 1.0 / Quu
-    Qux = [
-        sum(JuV[k] * Jx[k][j] for k in range(ds)) for j in range(ds)
-    ]
+    Qux = [sum(JuV[k] * Jx[k][j] for k in range(ds)) for j in range(ds)]
     qu = cu + sum(Ju[k] * v[k] for k in range(ds))
     K = [-Qux[j] * inv_quu for j in range(ds)]
     kff = -qu * inv_quu
-
-    dlin = qu * kff
-    dquad = kff * Quu * kff
-
     JxV = [
-        [sum(Jx[k][i_] * V[k, j] for k in range(ds)) for j in range(ds)]
-        for i_ in range(ds)
+        [sum(Jx[k][i] * V[k][j] for k in range(ds)) for j in range(ds)]
+        for i in range(ds)
     ]
-    # Qxx = diag(2 Q dt) + Jx' V Jx (the stage hessian is the
-    # constant diagonal, folded into the diagonal entries).
-    Qxx = [
+    # Qxx = diag(2 Q dt) + Jx' V Jx; V' = Qxx + Qux'K + K'Qux + K'Quu K.
+    V_new = [
         [
-            sum(JxV[i_][k] * Jx[k][j] for k in range(ds))
-            + ((qd[i_] if i_ < obsdim else 0.0) if i_ == j else 0.0)
+            sum(JxV[i][k] * Jx[k][j] for k in range(ds))
+            + (qd[i] if (i == j and i < obsdim) else 0.0)
+            + Qux[i] * K[j] + K[i] * Qux[j] + K[i] * K[j] * Quu
             for j in range(ds)
         ]
-        for i_ in range(ds)
+        for i in range(ds)
     ]
-    qx = [
-        cx[i_] + sum(Jx[k][i_] * v[k] for k in range(ds))
-        for i_ in range(ds)
-    ]
-    V_new = _stack2(
-        [
-            [
-                Qxx[i_][j]
-                + Qux[i_] * K[j]
-                + K[i_] * Qux[j]
-                + K[i_] * K[j] * Quu
-                for j in range(ds)
-            ]
-            for i_ in range(ds)
-        ]
-    )
+    qx = [cx[i] + sum(Jx[k][i] * v[k] for k in range(ds)) for i in range(ds)]
     resid = qu + Quu * kff
-    v_new = jnp.stack(
-        [qx[i_] + Qux[i_] * kff + K[i_] * resid for i_ in range(ds)]
-    )
-    return K, kff, V_new, v_new, dlin, dquad
-
-
-def _tri_idx(ds):
-    """Row-major upper-triangle flat indices: (i, j) -> slot, i <= j."""
-    idx = {}
-    s = 0
-    for i in range(ds):
-        for j in range(i, ds):
-            idx[(i, j)] = s
-            s += 1
-    return idx
-
-
-def _bq_step_sym(ds, obsdim, Jx, Ju, cx, cu, rd2, qd, Vu, v):
-    """Symmetric-V variant of ``_bq_step``: the value Hessian V is
-    symmetric, so only its ds*(ds+1)/2 upper entries are carried and
-    recomputed — ~25% fewer slab ops per step and a smaller live set
-    (the wide kernel's V scratch drops 16 -> 10 rows at ds=4). ``Vu``
-    is the flat upper-triangle list (``_tri_idx`` order); returns
-    ``V_new`` in the same packed form. Same math as ``_bq_step`` with
-    adds reordered — parity at f32 roundoff."""
-    ti = _tri_idx(ds)
-
-    def V(i, j):
-        return Vu[ti[(i, j)]] if i <= j else Vu[ti[(j, i)]]
-
-    JuV = [
-        sum(Ju[k] * V(k, j) for k in range(ds)) for j in range(ds)
-    ]
-    Quu = rd2 + sum(JuV[k] * Ju[k] for k in range(ds))
-    inv_quu = 1.0 / Quu
-    Qux = [
-        sum(JuV[k] * Jx[k][j] for k in range(ds)) for j in range(ds)
-    ]
-    qu = cu + sum(Ju[k] * v[k] for k in range(ds))
-    K = [-Qux[j] * inv_quu for j in range(ds)]
-    kff = -qu * inv_quu
-
-    dlin = qu * kff
-    dquad = kff * Quu * kff
-
-    JxV = [
-        [sum(Jx[k][i_] * V(k, j) for k in range(ds)) for j in range(ds)]
-        for i_ in range(ds)
-    ]
-    V_new = [
-        sum(JxV[i_][k] * Jx[k][j] for k in range(ds))
-        + ((qd[i_] if i_ < obsdim else 0.0) if i_ == j else 0.0)
-        + Qux[i_] * K[j]
-        + K[i_] * Qux[j]
-        + K[i_] * K[j] * Quu
-        for (i_, j) in ti
-    ]
-    qx = [
-        cx[i_] + sum(Jx[k][i_] * v[k] for k in range(ds))
-        for i_ in range(ds)
-    ]
-    resid = qu + Quu * kff
-    v_new = jnp.stack(
-        [qx[i_] + Qux[i_] * kff + K[i_] * resid for i_ in range(ds)]
-    )
-    return K, kff, jnp.stack(V_new), v_new, dlin, dquad
-
-
-def _backward_quad_loop(ds, obsdim, H, dt, load_jac,
-                        xs_ref, us_ref, qd_ref, rd_ref, fd_ref, goal_ref,
-                        ks_out_ref, kv_out_ref, lin_out_ref,
-                        quad_out_ref, select=None):
-    """Shared backward recursion with the diagonal-quadratic cost
-    expansions computed INLINE from the trajectory (lanes last, dc=1
-    squeezed): xs (H+1, ds, TB), us (H, TB), qd/fd (obsdim, TB),
-    rd (1, TB), goal (obsdim, 1) [SMEM]. ``load_jac(t)`` abstracts the
-    Jacobian stream layout — split (H, ds, ds, TB)+(H, ds, TB) arrays
-    or the packed (H, ds*(ds+1), TB) rows the fused line-search kernel
-    emits — returning (Jx [k][j], Ju [k]) lists of (TB,) slabs.
-
-    Replaces the separate expansions phase + the (B, H, ds, ds) Cxx /
-    (B, H, ds) cx / Cuu / cu materialization and their lanes-last
-    transposes: the stage expansions of the QuadCost fast paths
-    (costs/cost.py:62-141 — value (x-g)'Q(x-g), gradient 2Q(x-g),
-    hessian 2Q, dt-scaled per ilqr.py:165-187) are a handful of
-    per-lane multiplies once Q/R/F are diagonal."""
-    TB = us_ref.shape[-1]
-
-    def stack2(rows):
-        return jnp.stack([jnp.stack(r) for r in rows])
-
-    qd = [qd_ref[i] * (2.0 * dt) for i in range(obsdim)]   # (TB,)
-    rd2 = rd_ref[0] * (2.0 * dt)
-    goal = [goal_ref[i, 0] for i in range(obsdim)]
-
-    def cx_at(t):
-        # 2 Q (x - g) dt on the obs dims, zero beyond.
-        out = []
-        for i in range(ds):
-            if i < obsdim:
-                out.append(qd[i] * (xs_ref[t, i] - goal[i]))
-            else:
-                out.append(jnp.zeros((TB,), dtype=qd[0].dtype))
-        return out
-
-    def body(i, carry):
-        t = H - 1 - i
-        V, v, lin, quad = carry
-        Jx, Ju = load_jac(t)
-        cx = cx_at(t)
-        cu = rd2 * us_ref[t]
-
-        K, kff, V_new, v_new, dlin, dquad = _bq_step(
-            ds, obsdim, Jx, Ju, cx, cu, rd2, qd, V, v
-        )
-        lin = lin + dlin
-        quad = quad + dquad
-
-        if select is not None:
-            # In-kernel carry update (lanes-last path): inactive lanes
-            # write their OLD gains back instead of paying a separate
-            # elementwise where-pass over the (H, ds, B) carry arrays.
-            act_row, oldks_ref, oldkv_ref = select
-            ks_out_ref[t] = jnp.where(
-                act_row, jnp.stack(K), oldks_ref[t]
-            )
-            kv_out_ref[t] = jnp.where(act_row[0], kff, oldkv_ref[t])
-        else:
-            ks_out_ref[t] = jnp.stack(K)
-            kv_out_ref[t] = kff
-        return V_new, v_new, lin, quad
-
-    # Terminal expansion: Vn = diag(2 F), vn = 2 F (x_H - g).
-    fd2 = [fd_ref[i] * 2.0 for i in range(obsdim)]
-    zero = jnp.zeros((TB,), dtype=fd2[0].dtype)
-    V0 = stack2(
-        [
-            [
-                (fd2[i] if (i == j and i < obsdim) else zero)
-                for j in range(ds)
-            ]
-            for i in range(ds)
-        ]
-    )
-    v0 = jnp.stack(
-        [
-            fd2[i] * (xs_ref[H, i] - goal[i]) if i < obsdim else zero
-            for i in range(ds)
-        ]
-    )
-    V, v, lin, quad = jax.lax.fori_loop(
-        0, H, body, (V0, v0, zero, zero)
-    )
-    lin_out_ref[0] = lin
-    quad_out_ref[0] = quad
+    v_new = [qx[i] + Qux[i] * kff + K[i] * resid for i in range(ds)]
+    return K, kff, V_new, v_new, qu * kff, kff * Quu * kff
 
 
 def _backward_quad_kernel(ds, obsdim, H, dt,
                           jx_ref, ju_ref, xs_ref, us_ref,
                           qd_ref, rd_ref, fd_ref, goal_ref,
-                          ks_out_ref, kv_out_ref, lin_out_ref,
-                          quad_out_ref):
-    """Split-jac layout: jx (H, ds, ds, TB), ju (H, ds, TB)."""
+                          ks_ref, kv_ref, lin_ref, quad_ref):
+    """Block shapes (batch-major, TB lanes): jx (TB, H, ds, ds),
+    ju (TB, H, ds, 1), xs (TB, H+1, ds), us (TB, H, 1),
+    qd/fd (TB, obsdim), rd (TB, 1), goal (obsdim,);
+    outs Ks (TB, H, 1, ds), ks (TB, H, 1), lin/quad (TB,)."""
+    qd = [qd_ref[:, i] * (2.0 * dt) for i in range(obsdim)]
+    rd2 = rd_ref[:, 0] * (2.0 * dt)
+    goal = [goal_ref[i] for i in range(obsdim)]
+    zero = jnp.zeros_like(rd2)
 
-    def load_jac(t):
-        Jxm = jx_ref[t]
-        Jum = ju_ref[t]
-        Jx = [[Jxm[k, j] for j in range(ds)] for k in range(ds)]
-        Ju = [Jum[k] for k in range(ds)]
-        return Jx, Ju
-
-    _backward_quad_loop(
-        ds, obsdim, H, dt, load_jac,
-        xs_ref, us_ref, qd_ref, rd_ref, fd_ref, goal_ref,
-        ks_out_ref, kv_out_ref, lin_out_ref, quad_out_ref,
+    # Terminal expansion: Vn = diag(2 F), vn = 2 F (x_H - g).
+    fd2 = [fd_ref[:, i] * 2.0 for i in range(obsdim)]
+    V0 = tuple(
+        fd2[i] if (i == j and i < obsdim) else zero
+        for i in range(ds) for j in range(ds)
+    )
+    v0 = tuple(
+        fd2[i] * (xs_ref[:, H, i] - goal[i]) if i < obsdim else zero
+        for i in range(ds)
     )
 
+    def body(n, carry):
+        t = H - 1 - n
+        Vf, v, lin, quad = carry
+        V = [list(Vf[k * ds:(k + 1) * ds]) for k in range(ds)]
+        Jx = [[jx_ref[:, t, k, j] for j in range(ds)] for k in range(ds)]
+        Ju = [ju_ref[:, t, k, 0] for k in range(ds)]
+        cx = [
+            qd[i] * (xs_ref[:, t, i] - goal[i]) if i < obsdim else zero
+            for i in range(ds)
+        ]
+        cu = rd2 * us_ref[:, t, 0]
+        K, kff, V_new, v_new, dlin, dquad = bq_step(
+            ds, obsdim, Jx, Ju, cx, cu, rd2, qd, V, list(v)
+        )
+        for j in range(ds):
+            ks_ref[:, t, 0, j] = K[j]
+        kv_ref[:, t, 0] = kff
+        return (
+            tuple(e for row in V_new for e in row), tuple(v_new),
+            lin + dlin, quad + dquad,
+        )
 
-def _backward_quad_kernel_packed(ds, obsdim, H, dt, carry_update,
-                                 *refs):
-    """Packed-jac layout: jac (H, ds*(ds+1), TB), row k*(ds+1)+j =
-    dx'[k]/dx[j] for j < ds and dx'[k]/du for j == ds — exactly what
-    the fused line-search kernel emits (ops/pallas_linesearch.py),
-    sublane-DENSE (20 rows at ds=4 vs the split layout's 4x8-padded 32
-    + 8). ``carry_update``: three extra inputs (act (1, TB), old Ks
-    (H, ds, TB), old ks (H, TB)) — inactive lanes write their old
-    gains back in-kernel (see _backward_quad_loop)."""
-    (jac_ref, xs_ref, us_ref, qd_ref, rd_ref, fd_ref,
-     goal_ref) = refs[:7]
-    n_in = 7
-    select = None
-    if carry_update:
-        act_ref, oldks_ref, oldkv_ref = refs[7:10]
-        n_in = 10
-        select = (act_ref[...] > 0.5, oldks_ref, oldkv_ref)
-    (ks_out_ref, kv_out_ref, lin_out_ref,
-     quad_out_ref) = refs[n_in:n_in + 4]
-    d = ds + 1
-
-    def load_jac(t):
-        # The jac carry may be stored bf16 (half its HBM stream; the
-        # B=131072 fit, control/ilqr.py jac_dtype) — compute stays in
-        # the trajectory stream's dtype (f32).
-        row = jac_ref[t].astype(xs_ref.dtype)
-        Jx = [[row[k * d + j] for j in range(ds)] for k in range(ds)]
-        Ju = [row[k * d + ds] for k in range(ds)]
-        return Jx, Ju
-
-    _backward_quad_loop(
-        ds, obsdim, H, dt, load_jac,
-        xs_ref, us_ref, qd_ref, rd_ref, fd_ref, goal_ref,
-        ks_out_ref, kv_out_ref, lin_out_ref, quad_out_ref,
-        select=select,
-    )
+    _, _, lin, quad = jax.lax.fori_loop(0, H, body, (V0, v0, zero, zero))
+    lin_ref[...] = lin
+    quad_ref[...] = quad
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("dt", "obsdim", "block_b", "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("dt", "obsdim", "interpret"))
 def pallas_tvlqr_backward_quad(
     Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag, goal, dt, obsdim,
-    block_b: int = 128, interpret: bool = False,
+    interpret: bool = False,
 ):
     """Batched backward pass with inline diagonal-quadratic expansions;
     dc must be 1.
 
     Parameters: Jx (B, H, ds, ds), Ju (B, H, ds, 1), xs (B, H+1, ds),
-    us (B, H, 1), Qdiag/Fdiag (B, obsdim), Rdiag (B, 1),
-    goal (obsdim,); dt and obsdim static.
+    us (B, H, 1), Qdiag/Fdiag (B, obsdim), Rdiag (B, 1), goal
+    (obsdim,); dt and obsdim static.
 
     Returns (Ks (B, H, 1, ds), ks (B, H, 1), lin_red (B,), quad_red
-    (B,)) matching ``pallas_tvlqr_backward`` fed the QuadCost stage
-    expansions (tests pin this). Fixed-cost callers broadcast their
-    diagonals to (B, ...) — 1 KB/lane, nothing vs the (B, H, ds, ds)
-    Cxx array this kernel replaces.
+    (B,)), the outputs of ``tvlqr_backward_scan`` fed the QuadCost stage
+    expansions.
     """
     B, H, ds, _ = Jx.shape
     if Ju.shape[-1] != 1:
         raise ValueError("pallas_tvlqr_backward_quad is dc=1 only")
-    TB = min(block_b, B)
-    if B % TB != 0:
-        raise ValueError(f"batch {B} must be divisible by block {TB}")
-
-    jx = jnp.transpose(Jx, (1, 2, 3, 0))           # (H, ds, ds, B)
-    ju = jnp.transpose(Ju[..., 0], (1, 2, 0))      # (H, ds, B)
-    xsT = jnp.transpose(xs, (1, 2, 0))             # (H+1, ds, B)
-    usT = jnp.transpose(us[..., 0], (1, 0))        # (H, B)
-    qdT = jnp.transpose(Qdiag, (1, 0))             # (obsdim, B)
-    rdT = jnp.transpose(Rdiag, (1, 0))             # (1, B)
-    fdT = jnp.transpose(Fdiag, (1, 0))
-    goal2 = jnp.asarray(goal, dtype=Jx.dtype).reshape(obsdim, 1)
-
-    kernel = functools.partial(
-        _backward_quad_kernel, ds, obsdim, H, float(dt)
+    dtype = Jx.dtype
+    TB = block_for(B)
+    (Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag), _ = pad_batch(
+        [Jx, Ju, xs, us, Qdiag.astype(dtype), Rdiag.astype(dtype),
+         Fdiag.astype(dtype)],
+        TB,
     )
-    grid = (B // TB,)
+    Bp = Jx.shape[0]
 
-    def bspec(shape_prefix):
-        ndim = len(shape_prefix)
+    def bspec(shape):
+        nd = len(shape)
         return pl.BlockSpec(
-            shape_prefix + (TB,),
-            lambda i, nd=ndim: (0,) * nd + (i,),
-            memory_space=pltpu.VMEM,
+            (TB,) + shape, lambda i, nd=nd: (i,) + (0,) * nd
         )
 
-    out_shape = (
-        jax.ShapeDtypeStruct((H, ds, B), Jx.dtype),
-        jax.ShapeDtypeStruct((H, B), Jx.dtype),
-        jax.ShapeDtypeStruct((1, B), Jx.dtype),
-        jax.ShapeDtypeStruct((1, B), Jx.dtype),
-    )
-    ksT, kvT, linT, quadT = pl.pallas_call(
-        kernel,
-        grid=grid,
+    Ks, ks, lin, quad = pl.pallas_call(
+        functools.partial(_backward_quad_kernel, ds, obsdim, H, float(dt)),
+        grid=(Bp // TB,),
         in_specs=[
-            bspec((H, ds, ds)),
-            bspec((H, ds)),
-            bspec((H + 1, ds)),
-            bspec((H,)),
+            bspec((H, ds, ds)), bspec((H, ds, 1)), bspec((H + 1, ds)),
+            bspec((H, 1)), bspec((obsdim,)), bspec((1,)),
             bspec((obsdim,)),
-            bspec((1,)),
-            bspec((obsdim,)),
-            pl.BlockSpec(
-                (obsdim, 1), lambda i: (0, 0),
-                memory_space=pltpu.SMEM,
-            ),
+            pl.BlockSpec((obsdim,), lambda i: (0,)),
         ],
         out_specs=(
-            bspec((H, ds)),
-            bspec((H,)),
-            bspec((1,)),
-            bspec((1,)),
+            bspec((H, 1, ds)), bspec((H, 1)), bspec(()), bspec(()),
         ),
-        out_shape=out_shape,
+        out_shape=(
+            jax.ShapeDtypeStruct((Bp, H, 1, ds), dtype),
+            jax.ShapeDtypeStruct((Bp, H, 1), dtype),
+            jax.ShapeDtypeStruct((Bp,), dtype),
+            jax.ShapeDtypeStruct((Bp,), dtype),
+        ),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
         interpret=interpret,
-    )(jx, ju, xsT, usT, qdT.astype(Jx.dtype), rdT.astype(Jx.dtype),
-      fdT.astype(Jx.dtype), goal2)
-
-    Ks = jnp.transpose(ksT, (2, 0, 1))[:, :, None, :]
-    ks = jnp.transpose(kvT, (1, 0))[:, :, None]
-    return Ks, ks, linT[0], quadT[0]
-
-
-def _backward_quad_kernel_wide(ds, obsdim, H, T, dt, carry_update,
-                               step_mode, cast_S, *refs):
-    """Streamed WIDE variant: a (batch-blocks, H/T) grid with the value
-    carry in VMEM scratch and every batch slab a FULL (8, 128) tile —
-    1024 lanes per vector instruction instead of the loop kernel's
-    (TB,) rows, which Mosaic stores as (1, 128) and issues at 1/8
-    occupancy. T timesteps run statically unrolled per cell: a 1-step
-    cell measured 22.8 ms at B=65536 (vs the loop kernel's 23.8) —
-    grid-cell overhead (~1.8 us x 12,800 cells) swallowed the layout
-    win, so cells are chunked.
-
-    Per-cell blocks: jac (T, ds*(ds+1), 8, 128), xs (T, ds, 8, 128),
-    us (T, 8, 128); per-batch-block (time-constant): xterm
-    (ds, 8, 128), qd/fd (obsdim, 8, 128), rd (1, 8, 128), goal
-    (obsdim, 1) SMEM [+ act (1, 8, 128), old Ks/ks time rows when
-    carry_update]; outs ks (T, ds, 8, 128), kv (T, 8, 128), lin/quad
-    (1, 8, 128) revisited accumulators; scratch V (ds, ds, 8, 128),
-    v (ds, 8, 128)."""
-    (jac_ref, xs_ref, us_ref, xterm_ref, qd_ref, rd_ref, fd_ref,
-     goal_ref) = refs[:8]
-    n_in = 8
-    if carry_update:
-        act_ref, oldks_ref, oldkv_ref = refs[8:11]
-        n_in = 11
-    (ks_out_ref, kv_out_ref, lin_out_ref, quad_out_ref,
-     V_s, v_s) = refs[n_in:n_in + 6]
-
-    d = ds + 1
-    c_idx = pl.program_id(1)
-
-    # cast_S: the cast-IO variant — blocks arrive 3D with a flat
-    # SL = cast_S * 128 lane axis (the SOLVER-side layout, so the
-    # wrapper pays zero XLA relayouts) and every read/write does the
-    # (X, SL) <-> (X, S, 128) layout cast IN VMEM. cast_S None = the
-    # pre-split 4D blocks.
-    if cast_S:
-        SL = cast_S * 128
-
-        def c2(a):                       # (X, SL) -> (X, S, 128)
-            return a.reshape(a.shape[0], cast_S, 128)
-
-        def c1(a):                       # (SL,) -> (S, 128)
-            return a.reshape(cast_S, 128)
-
-        def f2(a):                       # (X, S, 128) -> (X, SL)
-            return a.reshape(a.shape[0], SL)
-
-        def f1(a):                       # (S, 128) -> (SL,)
-            return a.reshape(SL)
-
-        def rd_us(tt):
-            return c1(us_ref[tt, 0])
-
-        def rd_oldkv(tt):
-            return c1(oldkv_ref[tt, 0])
-
-        def wr_kv(tt, val):
-            kv_out_ref[tt] = f1(val)[None]
-    else:
-        c2 = c1 = f2 = f1 = lambda a: a
-
-        def rd_us(tt):
-            return us_ref[tt]
-
-        def rd_oldkv(tt):
-            return oldkv_ref[tt]
-
-        def wr_kv(tt, val):
-            kv_out_ref[tt] = val
-
-    qd = [c1(qd_ref[i]) * (2.0 * dt) for i in range(obsdim)]  # (8,128)
-    rd2 = c1(rd_ref[0]) * (2.0 * dt)
-    goal = [goal_ref[i, 0] for i in range(obsdim)]
-    zero = jnp.zeros_like(rd2)
-
-    sym = step_mode == "sym"
-    ti = _tri_idx(ds)
-
-    @pl.when(c_idx == 0)
-    def _init():
-        # Terminal expansion: Vn = diag(2 F), vn = 2 F (x_H - g).
-        fd2 = [c1(fd_ref[i]) * 2.0 for i in range(obsdim)]
-        xterm = c2(xterm_ref[...])
-        if sym:
-            V_s[...] = jnp.stack(
-                [
-                    (fd2[i] if (i == j and i < obsdim) else zero)
-                    for (i, j) in ti
-                ]
-            )
-        else:
-            V_s[...] = _stack2(
-                [
-                    [
-                        (fd2[i] if (i == j and i < obsdim) else zero)
-                        for j in range(ds)
-                    ]
-                    for i in range(ds)
-                ]
-            )
-        v_s[...] = jnp.stack(
-            [
-                fd2[i] * (xterm[i] - goal[i]) if i < obsdim
-                else zero
-                for i in range(ds)
-            ]
-        )
-        lin_out_ref[0] = jnp.zeros_like(lin_out_ref[0])
-        quad_out_ref[0] = jnp.zeros_like(quad_out_ref[0])
-
-    V = V_s[...]
-    v = v_s[...]
-    lin = c1(lin_out_ref[0]) if cast_S else lin_out_ref[0]
-    quad = c1(quad_out_ref[0]) if cast_S else quad_out_ref[0]
-    if carry_update:
-        act = c1(act_ref[0]) > 0.5                      # (8, 128)
-    if step_mode == "probe":
-        # Diagnostic stream floor: touch every input stream and write
-        # every output with trivial compute (~10 slab ops/step instead
-        # of ~130) — NOT the recursion. Used only by
-        # tools/ab_wide_backward.py to separate stream time from
-        # compute-issue time.
-        acc = lin
-        for tt in range(T - 1, -1, -1):
-            row = c2(jac_ref[tt].astype(xs_ref.dtype))
-            acc = acc + row[0] + row[ds * (ds + 1) - 1]
-            ks_out_ref[tt] = f2(c2(xs_ref[tt]) * rd2[None])
-            kv = rd_us(tt) + acc
-            if carry_update:
-                kv = kv + rd_oldkv(tt) + c2(oldks_ref[tt])[0]
-            wr_kv(tt, kv)
-        lin_out_ref[0] = f1(acc)
-        quad_out_ref[0] = quad_out_ref[0] + f1(v[0])
-        V_s[...] = V
-        v_s[...] = v
-        return
-    for tt in range(T - 1, -1, -1):                     # reversed chunk
-        # Upcast BEFORE the layout reshape: the cast runs elementwise
-        # on the stored layout (a no-op for f32 jac; bf16 jac is the
-        # half-stream carry, control/ilqr.py jac_dtype).
-        row = c2(jac_ref[tt].astype(xs_ref.dtype))      # (dsd, 8, 128)
-        Jx = [[row[k * d + j] for j in range(ds)] for k in range(ds)]
-        Ju = [row[k * d + ds] for k in range(ds)]
-        xs = c2(xs_ref[tt])
-        cx = [
-            qd[i] * (xs[i] - goal[i]) if i < obsdim else zero
-            for i in range(ds)
-        ]
-        cu = rd2 * rd_us(tt)
-
-        step = _bq_step_sym if sym else _bq_step
-        K, kff, V, v, dlin, dquad = step(
-            ds, obsdim, Jx, Ju, cx, cu, rd2, qd, V, v
-        )
-        lin = lin + dlin
-        quad = quad + dquad
-
-        if carry_update:
-            ks_out_ref[tt] = f2(jnp.where(
-                act[None], jnp.stack(K), c2(oldks_ref[tt])
-            ))
-            wr_kv(tt, jnp.where(act, kff, rd_oldkv(tt)))
-        else:
-            ks_out_ref[tt] = f2(jnp.stack(K))
-            wr_kv(tt, kff)
-    lin_out_ref[0] = f1(lin)
-    quad_out_ref[0] = f1(quad)
-    V_s[...] = V
-    v_s[...] = v
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "dt", "obsdim", "block_b", "interpret", "wide", "wide_io",
-    ),
-)
-def pallas_tvlqr_backward_quad_ll(
-    jac_p, xsT, usT, QdT, RdT, FdT, goal, dt, obsdim,
-    block_b: int = 128, interpret: bool = False,
-    carry=None, wide: str = "auto", wide_io: str = "cast",
-):
-    """Lanes-last, packed-jac variant of ``pallas_tvlqr_backward_quad``
-    — zero layout transposes in the wrapper, so the iLQR body can keep
-    its carry lanes-last across iterations (the per-iteration
-    (B,H,ds,ds)<->(H,ds,ds,B) relayouts of the batch-major wrapper are
-    pure HBM round-trips at headline batch sizes). dc must be 1.
-
-    Parameters: jac_p (H, ds*(ds+1), B) — packed rows k*(ds+1)+j, the
-    layout ``pallas_fused_line_search(ll_io=True)`` emits; xsT
-    (H+1, ds, B); usT (H, B); QdT/FdT (obsdim, B); RdT (1, B);
-    goal (obsdim,); dt and obsdim static.
-
-    Returns (KsT (H, ds, B), ksT (H, B), lin_red (B,), quad_red (B,))
-    — the same values as the batch-major wrapper, lanes-last.
-
-    ``carry``: optional ``(act (B,) bool, old_KsT (H, ds, B), old_ksT
-    (H, B))`` — in-kernel carry update: inactive lanes return their
-    OLD gains (the iLQR body's ``upd`` select fused into the kernel's
-    writes).
-
-    ``wide``: "auto" (the streamed full-(8,128)-tile kernel whenever
-    B is a multiple of 1024 — 8x the per-instruction lanes of the
-    whole-horizon loop kernel), "on" (require it), or "off".
-
-    ``wide_io``: "cast" (default — blocks cut straight from the 3D
-    arrays, (SL,) <-> (S, 128) layout casts in VMEM) or "reshape" (XLA
-    host-side reshapes to pre-split 4D; those reshapes are tiled-layout
-    RELAYOUTS measured at ~8.3 ms/call of pure HBM round-trip at
-    B=65536, which is why cast is the default). Static so the two
-    variants get distinct jit cache entries (an env knob alone is
-    invisible to the nested-jit cache key)."""
-    H, dsd, B = jac_p.shape
-    ds = xsT.shape[1]
-    if dsd != ds * (ds + 1):
-        raise ValueError(
-            f"jac_p rows {dsd} != ds*(ds+1) = {ds * (ds + 1)}"
-        )
-    if wide not in ("auto", "on", "off"):
-        raise ValueError(f"wide must be auto/on/off, got {wide!r}")
-    if wide_io not in ("cast", "reshape"):
-        raise ValueError(f"wide_io must be cast/reshape, got {wide_io!r}")
-    if wide == "on" and B % 1024 != 0:
-        raise ValueError(f"wide='on' needs B % 1024 == 0, got {B}")
-    if wide != "off" and B % 1024 == 0:
-        if wide_io == "cast":
-            return _backward_quad_ll_wide_cast(
-                jac_p, xsT, usT, QdT, RdT, FdT, goal, dt, obsdim,
-                interpret, carry,
-            )
-        return _backward_quad_ll_wide(
-            jac_p, xsT, usT, QdT, RdT, FdT, goal, dt, obsdim,
-            interpret, carry,
-        )
-    TB = min(block_b, B)
-    if B % TB != 0:
-        raise ValueError(f"batch {B} must be divisible by block {TB}")
-
-    # Compute/IO dtype follows the trajectory streams; jac_p may be a
-    # bf16 carry (upcast at the kernels' read sites).
-    cdt = xsT.dtype
-    goal2 = jnp.asarray(goal, dtype=cdt).reshape(obsdim, 1)
-    kernel = functools.partial(
-        _backward_quad_kernel_packed, ds, obsdim, H, float(dt),
-        carry is not None,
-    )
-    grid = (B // TB,)
-
-    def bspec(shape_prefix):
-        ndim = len(shape_prefix)
-        return pl.BlockSpec(
-            shape_prefix + (TB,),
-            lambda i, nd=ndim: (0,) * nd + (i,),
-            memory_space=pltpu.VMEM,
-        )
-
-    in_specs = [
-        bspec((H, dsd)),
-        bspec((H + 1, ds)),
-        bspec((H,)),
-        bspec((obsdim,)),
-        bspec((1,)),
-        bspec((obsdim,)),
-        pl.BlockSpec(
-            (obsdim, 1), lambda i: (0, 0),
-            memory_space=pltpu.SMEM,
-        ),
-    ]
-    inputs = [
-        jac_p, xsT, usT, QdT.astype(cdt),
-        RdT.astype(cdt), FdT.astype(cdt), goal2,
-    ]
-    if carry is not None:
-        act, old_KsT, old_ksT = carry
-        in_specs += [bspec((1,)), bspec((H, ds)), bspec((H,))]
-        inputs += [
-            act.astype(cdt)[None, :], old_KsT, old_ksT,
-        ]
-
-    out_shape = (
-        jax.ShapeDtypeStruct((H, ds, B), cdt),
-        jax.ShapeDtypeStruct((H, B), cdt),
-        jax.ShapeDtypeStruct((1, B), cdt),
-        jax.ShapeDtypeStruct((1, B), cdt),
-    )
-    ksT, kvT, linT, quadT = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(
-            bspec((H, ds)),
-            bspec((H,)),
-            bspec((1,)),
-            bspec((1,)),
-        ),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
-
-    return ksT, kvT, linT[0], quadT[0]
-
-
-def _backward_quad_ll_wide_cast(jac_p, xsT, usT, QdT, RdT, FdT, goal,
-                                dt, obsdim, interpret, carry):
-    """Cast-IO wide backward: blocks are cut straight from the solver's
-    3D lanes-last arrays ((H, X, B) with a flat lane axis) and each
-    kernel read/write does the (X, SL) <-> (X, S, 128) layout cast IN
-    VMEM. The round-5 A/B measured the 3D wrapper's XLA reshapes as
-    ~8.3 ms of pure HBM relayout per call at B=65536 (the 4D kernel
-    core is ~4.4 ms) — casting in VMEM removes them without changing
-    the solver's carry layout."""
-    H, dsd, B = jac_p.shape
-    ds = xsT.shape[1]
-    # Compute/IO dtype follows the trajectory streams (f32); jac_p may
-    # be the bf16 half-stream carry (upcast at the kernel read sites).
-    dtype = xsT.dtype
-    S = int(os.environ.get("AMPC_BQ_WIDE_S", "16"))
-    while S > 8 and B % (128 * S) != 0:
-        S //= 2
-    SL = 128 * S
-    nb = B // SL
-    if B % SL != 0:
-        raise ValueError(f"wide backward needs B % {SL} == 0, got {B}")
-    T = int(os.environ.get(
-        "AMPC_BQ_WIDE_T",
-        next(t for t in (25, 20, 10, 8, 5, 4, 2, 1) if H % t == 0),
-    ))
-    nc = H // T
-    step_mode = os.environ.get("AMPC_BQ_WIDE_STEP", "std")
-    kernel = functools.partial(
-        _backward_quad_kernel_wide, ds, obsdim, H, T, float(dt),
-        carry is not None, step_mode, S,
-    )
-    grid = (nb, nc)
-
-    def tspec3(shape_mid):
-        nd = len(shape_mid)
-        return pl.BlockSpec(
-            (T,) + shape_mid + (SL,),
-            lambda b, c, nd=nd: (nc - 1 - c,) + (0,) * nd + (b,),
-            memory_space=pltpu.VMEM,
-        )
-
-    def cspec3(shape_prefix):
-        nd = len(shape_prefix)
-        return pl.BlockSpec(
-            shape_prefix + (SL,),
-            lambda b, t, nd=nd: (0,) * nd + (b,),
-            memory_space=pltpu.VMEM,
-        )
-
-    goal2 = jnp.asarray(goal, dtype=dtype).reshape(obsdim, 1)
-    in_specs = [
-        tspec3((dsd,)), tspec3((ds,)), tspec3((1,)),
-        cspec3((ds,)), cspec3((obsdim,)), cspec3((1,)),
-        cspec3((obsdim,)),
-        pl.BlockSpec(
-            (obsdim, 1), lambda b, t: (0, 0), memory_space=pltpu.SMEM
-        ),
-    ]
-    inputs = [
-        jac_p, xsT[:H], usT[:, None, :], xsT[H],
-        QdT.astype(dtype), RdT.astype(dtype), FdT.astype(dtype), goal2,
-    ]
-    if carry is not None:
-        act, old_KsT, old_ksT = carry
-        in_specs += [cspec3((1,)), tspec3((ds,)), tspec3((1,))]
-        inputs += [
-            act.astype(dtype)[None, :], old_KsT, old_ksT[:, None, :],
-        ]
-
-    out_shape = (
-        jax.ShapeDtypeStruct((H, ds, B), dtype),
-        jax.ShapeDtypeStruct((H, 1, B), dtype),
-        jax.ShapeDtypeStruct((1, B), dtype),
-        jax.ShapeDtypeStruct((1, B), dtype),
-    )
-    ks3, kv3, lin2, quad2 = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(
-            tspec3((ds,)), tspec3((1,)), cspec3((1,)), cspec3((1,)),
-        ),
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM(
-                ((ds * (ds + 1) // 2, S, 128) if step_mode == "sym"
-                 else (ds, ds, S, 128)),
-                dtype,
-            ),
-            pltpu.VMEM((ds, S, 128), dtype),
-        ],
-        interpret=interpret,
-    )(*inputs)
-    return ks3, kv3[:, 0, :], lin2[0], quad2[0]
-
-
-def _backward_quad_ll_wide(jac_p, xsT, usT, QdT, RdT, FdT, goal, dt,
-                           obsdim, interpret, carry):
-    """Reshape-IO wide dispatch body for
-    ``pallas_tvlqr_backward_quad_ll`` (see
-    ``_backward_quad_kernel_wide``): XLA reshapes split the lane axis
-    B -> (B//128, 128) on the host side — tiled-layout RELAYOUTS,
-    measured ~8.3 ms of pure HBM round-trip per call at B=65536, which
-    is why ``wide_io="cast"`` (``_backward_quad_ll_wide_cast``) is the
-    default. ``S`` batch sublanes per slab (AMPC_BQ_WIDE_S /
-    AMPC_BQ_WIDE_T override for sweeps; the round-5 A/B measured S/T
-    flat within 2% — the kernel core is stream-bound, not
-    chain-latency bound)."""
-    H, dsd, B = jac_p.shape
-    ds = xsT.shape[1]
-    nl = B // 128
-    dtype = xsT.dtype
-
-    jac4 = jac_p.reshape(H, dsd, nl, 128)
-    xs4 = xsT[:H].reshape(H, ds, nl, 128)
-    xterm = xsT[H].reshape(ds, nl, 128)
-    us4 = usT.reshape(H, nl, 128)
-    Qd4 = QdT.astype(dtype).reshape(obsdim, nl, 128)
-    Rd4 = RdT.astype(dtype).reshape(1, nl, 128)
-    Fd4 = FdT.astype(dtype).reshape(obsdim, nl, 128)
-    goal2 = jnp.asarray(goal, dtype=dtype).reshape(obsdim, 1)
-
-    carry4 = None
-    if carry is not None:
-        act, old_KsT, old_ksT = carry
-        carry4 = (
-            act.astype(dtype).reshape(1, nl, 128),
-            old_KsT.reshape(H, ds, nl, 128),
-            old_ksT.reshape(H, nl, 128),
-        )
-    ks4, kv4, lin4, quad4 = _backward_quad_ll_wide_4d(
-        jac4, xs4, xterm, us4, Qd4, Rd4, Fd4, goal2, dt, obsdim,
-        interpret, carry4,
-    )
-    return (
-        ks4.reshape(H, ds, B),
-        kv4.reshape(H, B),
-        lin4.reshape(B),
-        quad4.reshape(B),
-    )
-
-
-def _backward_quad_ll_wide_4d(jac4, xs4, xterm, us4, Qd4, Rd4, Fd4,
-                              goal2, dt, obsdim, interpret, carry):
-    """4D core of the wide backward: all batch-carrying arrays arrive
-    pre-split as (..., nl, 128) — the layout the kernel's (S, 128)
-    slabs want — so a caller that KEEPS its iteration carry in this
-    shape pays zero relayouts here. (The 3D wrapper's reshapes are real
-    TPU relayout copies: the round-5 A/B measured the full std kernel
-    == a trivial-compute probe at ~17.3 ms — the wrapper's time was
-    streams + relayouts, not the recursion.)"""
-    H, dsd, nl, _ = jac4.shape
-    ds = xs4.shape[1]
-    B = nl * 128
-    dtype = xs4.dtype
-    # Default S=16 (two independent vregs per op interleave the
-    # dependency chains: 19.8 ms vs 20.3 at S=8, 23.8 loop-kernel,
-    # B=65536); auto-downgrade when the batch doesn't divide. S=32
-    # exceeds VMEM at T=25.
-    S = int(os.environ.get("AMPC_BQ_WIDE_S", "16"))
-    while S > 8 and B % (128 * S) != 0:
-        S //= 2
-    nb = B // (128 * S)
-    if B % (128 * S) != 0:
-        raise ValueError(
-            f"wide backward needs B % {128 * S} == 0, got {B}"
-        )
-    # Largest chunk that divides H, capped so the unrolled cell body
-    # stays a reasonable compile size (25 steps x ~130 slab ops).
-    T = int(os.environ.get(
-        "AMPC_BQ_WIDE_T",
-        next(t for t in (25, 20, 10, 8, 5, 4, 2, 1) if H % t == 0),
-    ))
-    nc = H // T
-    # "std" | "sym" (carry only the symmetric V's upper triangle —
-    # fewer ops/live rows) | "probe" (diagnostic stream floor, wrong
-    # values — tools/ab_wide_backward.py only).
-    step_mode = os.environ.get("AMPC_BQ_WIDE_STEP", "std")
-    kernel = functools.partial(
-        _backward_quad_kernel_wide, ds, obsdim, H, T, float(dt),
-        carry is not None, step_mode, None,
-    )
-    grid = (nb, nc)
-
-    def tspec(shape_mid):
-        # T time rows per cell, reversed in CHUNK units (the c grid
-        # axis runs the recursion H-1 -> 0); 8 consecutive 128-lane
-        # rows per block.
-        nd = len(shape_mid)
-        return pl.BlockSpec(
-            (T,) + shape_mid + (S, 128),
-            lambda b, c, nd=nd: (nc - 1 - c,) + (0,) * nd + (b, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    def cspec(shape_prefix):
-        nd = len(shape_prefix)
-        return pl.BlockSpec(
-            shape_prefix + (S, 128),
-            lambda b, t, nd=nd: (0,) * nd + (b, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    in_specs = [
-        tspec((dsd,)), tspec((ds,)), tspec(()),
-        cspec((ds,)), cspec((obsdim,)), cspec((1,)), cspec((obsdim,)),
-        pl.BlockSpec(
-            (obsdim, 1), lambda b, t: (0, 0), memory_space=pltpu.SMEM
-        ),
-    ]
-    inputs = [jac4, xs4, us4, xterm, Qd4, Rd4, Fd4, goal2]
-    if carry is not None:
-        act4, oldKs4, oldks4 = carry
-        in_specs += [cspec((1,)), tspec((ds,)), tspec(())]
-        inputs += [act4, oldKs4, oldks4]
-
-    out_shape = (
-        jax.ShapeDtypeStruct((H, ds, nl, 128), dtype),
-        jax.ShapeDtypeStruct((H, nl, 128), dtype),
-        jax.ShapeDtypeStruct((1, nl, 128), dtype),
-        jax.ShapeDtypeStruct((1, nl, 128), dtype),
-    )
-    ks4, kv4, lin4, quad4 = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(
-            tspec((ds,)), tspec(()), cspec((1,)), cspec((1,)),
-        ),
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM(
-                ((ds * (ds + 1) // 2, S, 128) if step_mode == "sym"
-                 else (ds, ds, S, 128)),
-                dtype,
-            ),
-            pltpu.VMEM((ds, S, 128), dtype),
-        ],
-        interpret=interpret,
-    )(*inputs)
-
-    return ks4, kv4, lin4, quad4
-
-
-def _backward_general_kernel(ds, dc, H, jx_ref, ju_ref, cxx_ref, cuu_ref,
-                             cx_ref, cu_ref, vnm_ref, vnv_ref,
-                             ks_out_ref, kv_out_ref, lin_out_ref,
-                             quad_out_ref, V_s, v_s):
-    """General (any dc, any ds) backward step — one (batch-block, t)
-    grid cell. The horizon is the SECOND grid axis with a reversed
-    index map, so each cell sees one time slice streamed HBM->VMEM by
-    the Pallas pipeline (double-buffered) while the value-function
-    carry lives in VMEM scratch across cells — unlike the dc=1 kernels,
-    the whole-horizon window never has to fit in VMEM, so
-    halfcheetah-scale (ds=18, dc=6, H=200) shapes run.
-
-    Per-cell shapes (lanes last): jx (1, ds, ds, TB), ju (1, ds, dc,
-    TB), cxx (1, ds, ds, TB), cuu (1, dc, dc, TB), cx (1, ds, TB),
-    cu (1, dc, TB), vnm (ds, ds, TB), vnv (ds, TB); outs ks (1, dc, ds,
-    TB), kv (1, dc, TB), lin/quad (1, TB) [revisited accumulators];
-    scratch V_s (ds, ds, TB), v_s (ds, TB).
-
-    The dc x dc Quu solve is an unrolled per-lane Cholesky +
-    forward/back substitution (dc is small — 6 for halfcheetah — so
-    the dc^3/3 slab ops vectorize across TB lanes on the VPU exactly
-    like the rest of the recursion).
-    """
-    t_idx = pl.program_id(1)
-
-    @pl.when(t_idx == 0)
-    def _init():
-        V_s[...] = vnm_ref[...]
-        v_s[...] = vnv_ref[...]
-        lin_out_ref[0] = jnp.zeros_like(lin_out_ref[0])
-        quad_out_ref[0] = jnp.zeros_like(quad_out_ref[0])
-
-    V = V_s[...]
-    v = v_s[...]
-    Jx = jx_ref[0]          # (ds, ds, TB)
-    Ju = ju_ref[0]          # (ds, dc, TB)
-    Cxx = cxx_ref[0]
-    Cuu = cuu_ref[0]        # (dc, dc, TB)
-    cx = cx_ref[0]          # (ds, TB)
-    cu = cu_ref[0]          # (dc, TB)
-
-    # JuV[a][j] = sum_k Ju[k, a] V[k, j]      (Ju' V)
-    JuV = [
-        [sum(Ju[k, a] * V[k, j] for k in range(ds)) for j in range(ds)]
-        for a in range(dc)
-    ]
-    # Quu[a][b] = Cuu[a, b] + sum_k JuV[a][k] Ju[k, b]
-    Quu = [
-        [
-            Cuu[a, b] + sum(JuV[a][k] * Ju[k, b] for k in range(ds))
-            for b in range(dc)
-        ]
-        for a in range(dc)
-    ]
-    # Qux[a][j] = sum_k JuV[a][k] Jx[k, j]
-    Qux = [
-        [sum(JuV[a][k] * Jx[k, j] for k in range(ds)) for j in range(ds)]
-        for a in range(dc)
-    ]
-    # qu[a] = cu[a] + Ju[:, a] . v
-    qu = [
-        cu[a] + sum(Ju[k, a] * v[k] for k in range(ds)) for a in range(dc)
-    ]
-
-    # Per-lane Cholesky Quu = L L' (unrolled over dc).
-    L = [[None] * dc for _ in range(dc)]
-    Linv_diag = [None] * dc
-    for a in range(dc):
-        diag = Quu[a][a] - sum(L[a][m] * L[a][m] for m in range(a))
-        L[a][a] = jnp.sqrt(diag)
-        Linv_diag[a] = 1.0 / L[a][a]
-        for b in range(a + 1, dc):
-            L[b][a] = (
-                Quu[b][a] - sum(L[b][m] * L[a][m] for m in range(a))
-            ) * Linv_diag[a]
-
-    def chol_solve(rhs):
-        """Solve Quu x = rhs for one rhs (list of dc lane-vectors)."""
-        y = []
-        for a in range(dc):
-            y.append(
-                (rhs[a] - sum(L[a][m] * y[m] for m in range(a)))
-                * Linv_diag[a]
-            )
-        x = [None] * dc
-        for a in range(dc - 1, -1, -1):
-            x[a] = (
-                y[a] - sum(L[b][a] * x[b] for b in range(a + 1, dc))
-            ) * Linv_diag[a]
-        return x
-
-    # K = -Quu^{-1} Qux (columnwise), kff = -Quu^{-1} qu.
-    K = [[None] * ds for _ in range(dc)]
-    for j in range(ds):
-        col = chol_solve([Qux[a][j] for a in range(dc)])
-        for a in range(dc):
-            K[a][j] = -col[a]
-    kff_col = chol_solve(qu)
-    kff = [-kff_col[a] for a in range(dc)]
-
-    lin_out_ref[0] = lin_out_ref[0] + sum(
-        qu[a] * kff[a] for a in range(dc)
-    )
-    Quu_kff = [
-        sum(Quu[a][b] * kff[b] for b in range(dc)) for a in range(dc)
-    ]
-    quad_out_ref[0] = quad_out_ref[0] + sum(
-        kff[a] * Quu_kff[a] for a in range(dc)
-    )
-
-    # JxV[i][j] = sum_k Jx[k, i] V[k, j]
-    JxV = [
-        [sum(Jx[k, i] * V[k, j] for k in range(ds)) for j in range(ds)]
-        for i in range(ds)
-    ]
-    Qxx = [
-        [
-            Cxx[i, j] + sum(JxV[i][k] * Jx[k, j] for k in range(ds))
-            for j in range(ds)
-        ]
-        for i in range(ds)
-    ]
-    qx = [
-        cx[i] + sum(Jx[k, i] * v[k] for k in range(ds)) for i in range(ds)
-    ]
-
-    # V' = Qxx + Qux' K + K' Qux + K' Quu K ; v' = qx + Qux' kff
-    #      + K' (qu + Quu kff).
-    KQuu = [
-        [sum(K[a][i] * Quu[a][b] for a in range(dc)) for b in range(dc)]
-        for i in range(ds)
-    ]
-    V_new = jnp.stack(
-        [
-            jnp.stack(
-                [
-                    Qxx[i][j]
-                    + sum(Qux[a][i] * K[a][j] for a in range(dc))
-                    + sum(K[a][i] * Qux[a][j] for a in range(dc))
-                    + sum(KQuu[i][b] * K[b][j] for b in range(dc))
-                    for j in range(ds)
-                ]
-            )
-            for i in range(ds)
-        ]
-    )
-    resid = [qu[a] + Quu_kff[a] for a in range(dc)]
-    v_new = jnp.stack(
-        [
-            qx[i]
-            + sum(Qux[a][i] * kff[a] for a in range(dc))
-            + sum(K[a][i] * resid[a] for a in range(dc))
-            for i in range(ds)
-        ]
-    )
-
-    ks_out_ref[0] = jnp.stack([jnp.stack(K[a]) for a in range(dc)])
-    kv_out_ref[0] = jnp.stack(kff)
-    V_s[...] = V_new
-    v_s[...] = v_new
-
-
-@functools.partial(jax.jit, static_argnames=("block_b", "interpret"))
-def pallas_tvlqr_backward_general(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn,
-                                  block_b: int = 256,
-                                  interpret: bool = False):
-    """Batched TVLQR backward pass for ANY (ds, dc) — the multi-control
-    generalization of ``pallas_tvlqr_backward`` (which is specialized
-    to dc=1). Streams the horizon through a (batch-blocks, H) grid with
-    the value-function carry in VMEM scratch, so VMEM holds one time
-    slice per buffer instead of the whole horizon — required at
-    halfcheetah scale (ds=18: a whole-horizon window would need ~33 MB
-    at TB=128).
-
-    Parameters: Jx (B, H, ds, ds), Ju (B, H, ds, dc), Cxx (B, H, ds,
-    ds), Cuu (B, H, dc, dc), cx (B, H, ds), cu (B, H, dc),
-    Vn (B, ds, ds), vn (B, ds).
-
-    Returns (Ks (B, H, dc, ds), ks (B, H, dc), lin_red (B,), quad_red
-    (B,)) matching ``jax.vmap(tvlqr_backward_scan)`` (test-pinned).
-    """
-    B, H, ds, _ = Jx.shape
-    dc = Ju.shape[-1]
-    TB = min(block_b, B)
-    if B % TB != 0:
-        raise ValueError(f"batch {B} must be divisible by block {TB}")
-
-    jx = jnp.transpose(Jx, (1, 2, 3, 0))           # (H, ds, ds, B)
-    ju = jnp.transpose(Ju, (1, 2, 3, 0))           # (H, ds, dc, B)
-    cxxT = jnp.transpose(Cxx, (1, 2, 3, 0))
-    cuuT = jnp.transpose(Cuu, (1, 2, 3, 0))        # (H, dc, dc, B)
-    cxT = jnp.transpose(cx, (1, 2, 0))             # (H, ds, B)
-    cuT = jnp.transpose(cu, (1, 2, 0))             # (H, dc, B)
-    vnm = jnp.transpose(Vn, (1, 2, 0))             # (ds, ds, B)
-    vnv = jnp.transpose(vn, (1, 0))                # (ds, B)
-
-    kernel = functools.partial(_backward_general_kernel, ds, dc, H)
-    grid = (B // TB, H)
-
-    def tspec(shape_mid):
-        # One time row per cell, reversed (t grid axis runs the
-        # recursion H-1 -> 0).
-        nd = len(shape_mid)
-        return pl.BlockSpec(
-            (1,) + shape_mid + (TB,),
-            lambda b, t, nd=nd: (H - 1 - t,) + (0,) * nd + (b,),
-            memory_space=pltpu.VMEM,
-        )
-
-    def cspec(shape_prefix):
-        # Constant across the time axis (terminal expansions, lin/quad
-        # accumulators — the block is revisited, living in VMEM for the
-        # whole batch-block's recursion).
-        nd = len(shape_prefix)
-        return pl.BlockSpec(
-            shape_prefix + (TB,),
-            lambda b, t, nd=nd: (0,) * nd + (b,),
-            memory_space=pltpu.VMEM,
-        )
-
-    out_shape = (
-        jax.ShapeDtypeStruct((H, dc, ds, B), Jx.dtype),
-        jax.ShapeDtypeStruct((H, dc, B), Jx.dtype),
-        jax.ShapeDtypeStruct((1, B), Jx.dtype),
-        jax.ShapeDtypeStruct((1, B), Jx.dtype),
-    )
-    ksT, kvT, linT, quadT = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            tspec((ds, ds)),
-            tspec((ds, dc)),
-            tspec((ds, ds)),
-            tspec((dc, dc)),
-            tspec((ds,)),
-            tspec((dc,)),
-            cspec((ds, ds)),
-            cspec((ds,)),
-        ],
-        out_specs=(
-            tspec((dc, ds)),
-            tspec((dc,)),
-            cspec((1,)),
-            cspec((1,)),
-        ),
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((ds, ds, TB), Jx.dtype),
-            pltpu.VMEM((ds, TB), Jx.dtype),
-        ],
-        interpret=interpret,
-    )(jx, ju, cxxT, cuuT, cxT, cuT, vnm, vnv)
-
-    Ks = jnp.transpose(ksT, (3, 0, 1, 2))          # (B, H, dc, ds)
-    ks = jnp.transpose(kvT, (2, 0, 1))             # (B, H, dc)
-    return Ks, ks, linT[0], quadT[0]
-
-
-@functools.partial(jax.jit, static_argnames=("block_b", "interpret"))
-def pallas_tvlqr_backward(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn,
-                          block_b: int = 128, interpret: bool = False):
-    """Batched backward pass; dc must be 1.
-
-    Parameters: Jx (B, H, ds, ds), Ju (B, H, ds, 1), Cxx (B, H, ds, ds),
-    Cuu (B, H, 1, 1), cx (B, H, ds), cu (B, H, 1), Vn (B, ds, ds),
-    vn (B, ds).
-
-    Returns (Ks (B, H, 1, ds), ks (B, H, 1), lin_red (B,), quad_red (B,))
-    matching ``jax.vmap(tvlqr_backward_scan)``.
-    """
-    B, H, ds, _ = Jx.shape
-    if Ju.shape[-1] != 1:
-        raise ValueError("pallas_tvlqr_backward is specialized to dc=1")
-    TB = min(block_b, B)
-    if B % TB != 0:
-        raise ValueError(f"batch {B} must be divisible by block {TB}")
-
-    # Lanes-last relayout.
-    jx = jnp.transpose(Jx, (1, 2, 3, 0))          # (H, ds, ds, B)
-    ju = jnp.transpose(Ju[..., 0], (1, 2, 0))     # (H, ds, B)
-    cxx = jnp.transpose(Cxx, (1, 2, 3, 0))
-    cuu = jnp.transpose(Cuu[..., 0, 0], (1, 0))   # (H, B)
-    cxT = jnp.transpose(cx, (1, 2, 0))            # (H, ds, B)
-    cuT = jnp.transpose(cu[..., 0], (1, 0))       # (H, B)
-    vnm = jnp.transpose(Vn, (1, 2, 0))            # (ds, ds, B)
-    vnv = jnp.transpose(vn, (1, 0))               # (ds, B)
-
-    kernel = functools.partial(_backward_kernel, ds, H)
-    grid = (B // TB,)
-
-    def bspec(shape_prefix):
-        ndim = len(shape_prefix)
-        return pl.BlockSpec(
-            shape_prefix + (TB,),
-            lambda i, nd=ndim: (0,) * nd + (i,),
-            memory_space=pltpu.VMEM,
-        )
-
-    out_shape = (
-        jax.ShapeDtypeStruct((H, ds, B), Jx.dtype),   # Ks
-        jax.ShapeDtypeStruct((H, B), Jx.dtype),       # ks
-        jax.ShapeDtypeStruct((1, B), Jx.dtype),       # lin
-        jax.ShapeDtypeStruct((1, B), Jx.dtype),       # quad
-    )
-    ksT, kvT, linT, quadT = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            bspec((H, ds, ds)),
-            bspec((H, ds)),
-            bspec((H, ds, ds)),
-            bspec((H,)),
-            bspec((H, ds)),
-            bspec((H,)),
-            bspec((ds, ds)),
-            bspec((ds,)),
-        ],
-        out_specs=(
-            bspec((H, ds)),
-            bspec((H,)),
-            bspec((1,)),
-            bspec((1,)),
-        ),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(jx, ju, cxx, cuu, cxT, cuT, vnm, vnv)
-
-    Ks = jnp.transpose(ksT, (2, 0, 1))[:, :, None, :]   # (B, H, 1, ds)
-    ks = jnp.transpose(kvT, (1, 0))[:, :, None]         # (B, H, 1)
-    return Ks, ks, linT[0], quadT[0]
+        name="ilqr_backward_quad",
+    )(Jx, Ju, xs, us, Qdiag, Rdiag, Fdiag,
+      jnp.asarray(goal, dtype=dtype).reshape(obsdim))
+    return Ks[:B], ks[:B], lin[:B], quad[:B]

@@ -9,14 +9,34 @@ formulation that parallelizes the backward pass over the horizon
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+
+
+def highest_precision(fn):
+    """Trace ``fn`` under ``jax.default_matmul_precision("highest")``.
+
+    On the GPU a float32 dot at default precision may run in TF32
+    (about three decimal digits), which bends a 200-step Riccati
+    recursion and the line search enough to cost convergence. The
+    solvers' traced bodies (dynamics, cost expansions, recursion) are
+    wrapped in this, so no quality gate depends on the platform's
+    default."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def solve_small(A, b):
     """Linear solve specialized for the tiny control-dimension systems
     MPC produces: closed forms for 1x1/2x2 (a general LU lowers to a
-    far more expensive kernel than a reciprocal on TPU), LU fallback
+    far more expensive kernel than a reciprocal), LU fallback
     otherwise."""
     n = A.shape[0]
     if n == 1:
@@ -91,6 +111,7 @@ def infinite_horizon_lqr(A, B, Q, R, N=None, threshold=1e-3, max_iter=10000):
 # ---------------------------------------------------------------------------
 
 
+@highest_precision
 def tvlqr_backward_scan(Jacs_x, Jacs_u, Cxx, Cuu, cx, cu, Vn, vn, unroll=1):
     """Sequential time-varying LQR backward pass as one ``lax.scan``.
 
@@ -151,11 +172,10 @@ def tvlqr_backward_scan(Jacs_x, Jacs_u, Cxx, Cuu, cx, cu, Vn, vn, unroll=1):
 
 def solve_unrolled(A, B):
     """Fixed-size linear solve by unrolled Gaussian elimination with
-    partial pivoting — pure VPU arithmetic, no LU custom call. The
-    batched LU kernel faults the TPU runtime when issued at large
-    batch inside a while_loop (observed at B*H >~ 2e5 in the
-    associative-scan Riccati), and for the tiny matrices MPC produces
-    an unrolled elimination is faster anyway. A (n, n), B (n, k)."""
+    partial pivoting — elementwise arithmetic, no LU custom call. For
+    the tiny matrices MPC produces, inside a while_loop at large batch,
+    an unrolled elimination avoids a batched LU library call per step.
+    A (n, n), B (n, k)."""
     n = A.shape[0]
     M = jnp.concatenate([A, B], axis=1)          # (n, n+k)
     for col in range(n):
@@ -253,6 +273,7 @@ def tvlqr_gains(Jx, Ju, R, r, d, V, v, reg=0.0):
     return K, k, qu @ k, k @ Quu @ k
 
 
+@highest_precision
 def tvlqr_backward_assoc(Jacs_x, Jacs_u, Cxx, Cuu, cx, cu, Vn, vn,
                          d_seq=None, reg=0.0):
     """Parallel-in-time TVLQR backward pass: O(log H) depth via

@@ -1,7 +1,7 @@
 """Tuning fan-out: evaluate batches of candidate configurations with one
 sharded program.
 
-This is the TPU-native replacement for the reference's strictly
+This is the accelerator-native replacement for the reference's strictly
 sequential SMAC objective (reference: autompc/tuning/pipeline_tuner.py:
 213-271, one `pipeline(cfg) -> simulate -> cost` per iteration): for
 configuration families whose hyperparameters do not change compiled
@@ -35,7 +35,7 @@ def _validate_regw(batch, has_reg, cls_name):
     fan-out constructed with ``reg_matrix`` needs a ``regw`` lane array
     in every eval batch. Without this check a missing/ragged key
     surfaces as a raw KeyError (or shape error) from deep inside jit
-    tracing (ADVICE r2 item 3)."""
+    tracing."""
     if not has_reg:
         return
     if "regw" not in batch:
@@ -51,7 +51,7 @@ def _validate_regw(batch, has_reg, cls_name):
     )
     if hasattr(regw, "shape"):
         # 1-D is required unconditionally; the length check additionally
-        # needs a reference lane array to compare against (ADVICE r3).
+        # needs a reference lane array to compare against.
         if len(regw.shape) != 1:
             raise ValueError(
                 f"{cls_name}: 'regw' must be a 1-D per-lane array of "
@@ -80,7 +80,7 @@ class QuadCostFanout:
     ONE per-lane-cost iLQR solver per closed-loop step
     (control/ilqr.py:make_batched_ilqr_solver(quad_cost_batch=True)):
     the backward pass, line search, and relinearization see (B, ...)
-    tensors — large MXU tiles instead of vmap's lane-sliced loops over
+    tensors — one batched program instead of vmap's lane-sliced loops over
     tiny (ds, ds) solves. ``impl="vmap"`` keeps the per-candidate
     vmapped solver (the reference-shaped formulation; used by the
     parity tests).
@@ -98,20 +98,12 @@ class QuadCostFanout:
         goal=None,
         impl: str = "batched",
         compact_schedule=None,
-        backward: str = "scan",
+        backward: str = "auto",
         feature_spec=None,
-        block_b: int = 128,
         warm_start: bool = False,
         reg_matrix=None,
         reg_goal=None,
-        fuse_ls: bool = False,
-        lanes_last: bool = False,
     ):
-        # ``fuse_ls``: the fully fused line-search kernel (objective +
-        # acceptance in-kernel, per-lane diagonal costs; needs
-        # feature_spec). ``lanes_last``: the round-4 packed carry
-        # (control/ilqr.py lanes_last doc; needs fuse_ls, dc=1, no
-        # reg_matrix).
         # ``reg_matrix``/``reg_goal``: the GaussRegFactory term — the
         # candidate batch then additionally carries per-lane weights
         # ``regw (B,)`` and each lane's cost is the SumCost
@@ -161,18 +153,15 @@ class QuadCostFanout:
             # make_scheduled_ilqr_solver); pays off when the candidate
             # batch's solve-iteration histogram is long-tailed and B is
             # large enough that the argsort+gather is amortized.
-            # ``backward="pallas"`` / ``feature_spec`` opt the per-step
-            # solve into the Pallas Riccati / line-search kernels (same
-            # knobs as make_batched_ilqr_solver; dc=1 for the backward
-            # kernel, linear-in-features model for the line search).
+            # ``backward`` / ``feature_spec`` as in
+            # make_batched_ilqr_solver: the platform and the model pick
+            # the kernels (a linear-in-features model declares itself
+            # through ``feature_spec``).
             solver_kw = dict(
                 H=horizon, ds=ds, dc=dc, obsdim=n,
                 dt=system.dt, ubounds=ubounds, backward=backward,
-                feature_spec=feature_spec, block_b=block_b,
-                ls_block_l=10,  # one alpha-block per program (bench-tuned)
+                feature_spec=feature_spec,
                 quad_cost_batch=True, quad_goal=goal,
-                fuse_ls=bool(fuse_ls and feature_spec is not None),
-                lanes_last=bool(lanes_last),
             )
             if reg_matrix is not None:
                 solver_kw["reg_matrix"] = jnp.asarray(reg_matrix)
@@ -371,7 +360,7 @@ class JointSINDyQuadCostFanout:
     is a vmapped masked-lstsq iteration (ops/lstsq.py:stlsq), the
     controller synthesis rides ``make_batched_ilqr_solver(
     batch_params=True, quad_cost_batch=True)`` with the per-lane-
-    coefficient Pallas line-search/relinearization kernels, and the
+    coefficient line-search kernel where the platform has it, and the
     whole thing shard_maps over the mesh's candidate axis.
 
     One instance per (SINDy basis bucket, horizon) — the shape-changing
@@ -396,24 +385,14 @@ class JointSINDyQuadCostFanout:
         goal=None,
         compact_schedule=None,
         warm_start: bool = False,
-        backward: str = "scan",
-        block_b: int = 128,
-        use_feature_kernels: bool = False,
-        fuse_ls: bool = False,
+        backward: str = "auto",
         reg_matrix=None,
         reg_goal=None,
-        lanes_last: bool = False,
     ):
-        # Defaults are CPU-safe (XLA scan paths); TPU callers opt into
-        # the Pallas kernels with backward="pallas",
-        # use_feature_kernels=True — the same convention as
-        # QuadCostFanout's backward/feature_spec knobs. ``fuse_ls``
-        # additionally selects the fully fused line-search kernel
-        # (objective + acceptance in-kernel, per-lane diagonal costs;
-        # needs use_feature_kernels and a discrete-time bucket).
-        # ``reg_matrix``/``reg_goal``: GaussRegFactory term — the batch
-        # then carries per-lane ``regw`` weights (SumCost candidates;
-        # see QuadCostFanout).
+        # ``backward`` as in make_batched_ilqr_solver: the platform
+        # picks the kernels. ``reg_matrix``/``reg_goal``: GaussRegFactory
+        # term — the batch then carries per-lane ``regw`` weights
+        # (SumCost candidates; see QuadCostFanout).
         from ..core.trajectory import batch as traj_batch
         from ..ops.lstsq import fista_lasso, stlsq
         from ..sysid.sindy import SINDy
@@ -459,9 +438,7 @@ class JointSINDyQuadCostFanout:
         # Normal-equations staging: all candidate lanes share the SAME
         # data matrix (only the regularizer varies), so the Gram pair
         # stages once and each lane's STLSQ is (F, F) solves instead of
-        # (N, F) SVDs — training was 99% of the joint eval before this
-        # (3,860 of 3,905 ms at 512 lanes;
-        # tools/profile_joint_fanout.py).
+        # (N, F) SVDs (tools/profile_joint_fanout.py times the phases).
         from ..ops.lstsq import gram_stage, stlsq_gram
 
         if method != "lasso":
@@ -481,21 +458,16 @@ class JointSINDyQuadCostFanout:
                 return state + dt * out
             return out
 
-        # The feature kernels compute x' = coeffs @ theta directly, so
-        # they serve discrete-time models only; continuous-time buckets
-        # take the XLA scan paths.
+        # The line-search kernel computes x' = coeffs @ theta directly,
+        # so only discrete-time models declare a feature_spec;
+        # continuous-time buckets take the XLA line search.
         feature_spec = (
-            (library, "coeffs")
-            if use_feature_kernels and time_mode == "discrete"
-            else None
+            (library, "coeffs") if time_mode == "discrete" else None
         )
         solver_kw = dict(
             H=horizon, ds=n, dc=dc, obsdim=n, dt=dt, ubounds=ubounds,
             backward=backward, feature_spec=feature_spec,
-            block_b=block_b, ls_block_l=10,
             batch_params=True, quad_cost_batch=True, quad_goal=goal,
-            fuse_ls=bool(fuse_ls and feature_spec is not None),
-            lanes_last=bool(lanes_last),
         )
         if reg_matrix is not None:
             solver_kw["reg_matrix"] = jnp.asarray(reg_matrix)
@@ -634,8 +606,7 @@ class JointKoopmanLassoQuadCostFanout:
         goal=None,
         compact_schedule=None,
         warm_start: bool = False,
-        backward: str = "scan",
-        block_b: int = 128,
+        backward: str = "auto",
         reg_matrix=None,
         reg_goal=None,
     ):
@@ -684,7 +655,7 @@ class JointKoopmanLassoQuadCostFanout:
 
         solver_kw = dict(
             H=horizon, ds=N, dc=dc, obsdim=n, dt=system.dt,
-            ubounds=ubounds, backward=backward, block_b=block_b,
+            ubounds=ubounds, backward=backward,
             batch_params=True, quad_cost_batch=True, quad_goal=goal,
         )
         if reg_matrix is not None:
@@ -802,7 +773,7 @@ class JointGPQuadCostFanout:
     Round-3's joint_gp routing trained one shared SVGP per distinct
     induce_count in a HOST loop over buckets and ran a separate
     fixed-model fan-out per bucket — exact reference semantics but
-    sequential-in-K for wide sweeps (VERDICT r3 what's-missing #1).
+    sequential-in-K for wide sweeps.
     Here every distinct induce_count trains in ONE batched program at a
     padded inducing count (sysid/gp.py:train_svgp_buckets — padding is
     an exact no-op, test-pinned), trained buckets are cached across
@@ -828,8 +799,7 @@ class JointGPQuadCostFanout:
         goal=None,
         compact_schedule=None,
         warm_start: bool = False,
-        backward: str = "scan",
-        block_b: int = 128,
+        backward: str = "auto",
         reg_matrix=None,
         reg_goal=None,
         pad_to: Optional[int] = None,
@@ -862,7 +832,7 @@ class JointGPQuadCostFanout:
 
         solver_kw = dict(
             H=horizon, ds=n, dc=dc, obsdim=n, dt=system.dt,
-            ubounds=ubounds, backward=backward, block_b=block_b,
+            ubounds=ubounds, backward=backward,
             batch_params=True, quad_cost_batch=True, quad_goal=goal,
         )
         if reg_matrix is not None:
@@ -1041,8 +1011,7 @@ class JointMLPQuadCostFanout:
         goal=None,
         compact_schedule=None,
         warm_start: bool = False,
-        backward: str = "scan",
-        block_b: int = 128,
+        backward: str = "auto",
         reg_matrix=None,
         reg_goal=None,
         max_width: int = 256,
@@ -1197,7 +1166,7 @@ class JointMLPQuadCostFanout:
         self._pad_to = int(pad_to) if pad_to else None
         solver_kw = dict(
             H=horizon, ds=n, dc=dc, obsdim=n, dt=dt, ubounds=ubounds,
-            backward=backward, block_b=block_b,
+            backward=backward,
             batch_params=True, quad_cost_batch=True, quad_goal=goal,
             pred_diff=pred_diff, horizon_mask=self._horizon_mask,
         )

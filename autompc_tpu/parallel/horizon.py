@@ -3,7 +3,7 @@
 The reference's direct-transcription NLP stacks all H knot points into
 one IPOPT solve on one host (autompc/control/nmpc.py:36-187: decision
 variables x_0..x_H, u_0..u_{H-1}, one defect constraint per knot). The
-TPU analog of scaling that to long horizons is SEQUENCE parallelism
+accelerator analog of scaling that to long horizons is SEQUENCE parallelism
 over the knot axis — the moral equivalent of context/ring parallelism
 (SURVEY §5 "long-context"): split the horizon into P contiguous
 shooting intervals, one per device on a ``horizon`` mesh axis, and run
@@ -16,7 +16,7 @@ the whole SQP under ``jax.shard_map`` with explicit boundary exchange:
   recursion — runs block-parallel: each shard suffix-composes its own
   knots' Riccati elements (ops/riccati.py:tvlqr_element/combine — a
   local ``associative_scan``), ``all_gather``s the P per-chunk
-  composite elements over ICI (the cross-shard "KKT block reduction":
+  composite elements between devices (the cross-shard "KKT block reduction":
   5 small matrices per shard, bytes not buffers), composes the suffix
   of later chunks locally, and recovers its knots' value expansions
   and gains without ever materializing another chunk's arrays;
@@ -40,6 +40,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from ..ops.riccati import (
+    highest_precision,
     tvlqr_apply_element,
     tvlqr_combine,
     tvlqr_element,
@@ -389,7 +390,7 @@ def make_horizon_sharded_sqp_solver(
 
     sharded = jax.jit(
         jax.shard_map(
-            run,
+            highest_precision(run),
             mesh=mesh,
             in_specs=(P(), P(), P(axis), P(axis)),
             out_specs=(P(axis), P(axis)),

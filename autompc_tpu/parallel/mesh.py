@@ -8,8 +8,10 @@ shards batches of tuning evaluations across chips, with XLA inserting
 the collectives.
 
 Multi-host entry: call ``jax.distributed.initialize()`` before building
-the mesh and these utilities shard over the global device set (ICI
-within a slice, DCN across hosts at batch boundaries only).
+the mesh and these utilities shard over the global device set. The mesh
+follows the algorithm only: the cards of one host are joined all to all
+(NVLink), so no axis order is preferred, and the candidate axis needs
+collectives only at batch boundaries.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def pad_to_multiple(batch, multiple: int, axis: int = 0):
 
 def global_batch(batch, mesh: Mesh, axis: str = "config"):
     """Assemble per-process host data into GLOBAL sharded arrays for a
-    multi-process mesh (the DCN path: every process holds the full host
+    multi-process mesh (every process holds the full host
     batch, contributes the rows its local devices own, and the result
     is one global array over the mesh).
 

@@ -2,7 +2,7 @@
 
 Re-creates the reference ARX model (reference: autompc/sysid/arx.py:14-175)
 — history-window feature vectors, least-squares fit, companion-form (A, B)
-— with a TPU-native training path: feature matrices for a whole
+— with an accelerator-native training path: feature matrices for a whole
 TrajectoryBatch are built by vectorized shifts and fit with one masked
 least-squares solve on device (the reference assembles features row-by-row
 in Python, arx.py:88-101).

@@ -27,10 +27,10 @@ import numpy as np
 # pairs — the term's nonzero partial derivatives, each grad_fn mapping
 # z -> d(term)/d(z_comp). The sparse form mirrors the reference's
 # hand-written per-basis grad_func lambdas (basis_funcs.py:22-126) and
-# feeds the Pallas relinearization kernel (ops/pallas_relin.py), where
-# evaluating only the genuinely nonzero partials — built from sin/cos
-# subexpressions the compiler CSEs across terms — beats jvp-per-
-# direction by avoiding d redundant primal re-evaluations.
+# feeds the fused line-search kernel's Jacobians
+# (ops/pallas_linesearch.py), where evaluating only the genuinely
+# nonzero partials — built from sin/cos subexpressions the compiler
+# CSEs across terms — avoids d redundant primal re-evaluations.
 Term = Tuple[str, Callable]
 
 
@@ -177,8 +177,8 @@ class FeatureLibrary:
     trig, per-freq trig interactions, per-degree powers, cross terms):
     each block is a handful of whole-array ops along the last axis
     instead of one traced op per scalar term. Inside an MPC rollout scan
-    this is the difference between ~40 tiny VPU ops per step and ~8
-    fused array ops followed by one feature-matrix matmul on the MXU —
+    this is the difference between ~40 tiny ops per step and ~8 fused
+    array ops followed by one feature-matrix matmul —
     the feature evaluation sits on the hot path of every SINDy-backed
     solver (iLQR line search, MPPI rollouts, DT defects).
 
@@ -206,8 +206,8 @@ class FeatureLibrary:
         """Sparse per-term analytic gradients as a static (hashable)
         tuple — ``grad_terms[k]`` is a tuple of ``(comp_idx, grad_fn)``
         pairs for term k — or ``None`` if any term lacks them (custom
-        term lists). Consumed by the Pallas relinearization kernel
-        (ops/pallas_relin.py)."""
+        term lists). Consumed by the fused line-search kernel
+        (ops/pallas_linesearch.py)."""
         if any(g is None for g in self._term_grads):
             return None
         return tuple(self._term_grads)

@@ -77,7 +77,7 @@ class DummyNonlinear(Model):
 
 class FunctionModel(Model):
     """Wrap an arbitrary jax-traceable dynamics function as a Model — the
-    TPU-native generalization of the dummy models: lets benchmarks'
+    Accelerator-native generalization of the dummy models: lets benchmarks'
     ground-truth dynamics act as a perfect 'trained' model (useful for
     optimizer-isolation tests and oracle baselines)."""
 

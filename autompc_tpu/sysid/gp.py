@@ -6,10 +6,10 @@ independent sparse GP per observation dimension — over the z-scored state
 delta, with learned inducing points, RBF(+scale) kernel, constant mean,
 and Gaussian likelihood, trained by Adam on the variational ELBO.
 
-TPU-native re-design: every task's GP is a *vmapped* parameter slice, so
-kernel evaluations, Cholesky factorizations, ELBO, and predictions for
-all output dimensions run as one batched program on the MXU; the whole
-training loop (epochs x minibatches) is a jitted ``lax.scan``.
+Accelerator-native re-design: every task's GP is a *vmapped* parameter
+slice, so kernel evaluations, Cholesky factorizations, ELBO, and
+predictions for all output dimensions run as one batched program; the
+whole training loop (epochs x minibatches) is a jitted ``lax.scan``.
 Mean-prediction Jacobians come from ``jax.jacfwd`` through the
 predictive mean (replacing largegp.py:161-207's repeated-input backward
 trick); posterior sampling uses the predictive Cholesky like
@@ -113,8 +113,8 @@ def pad_inducing_params(params, M_real, pad_to):
 
     This is what makes a multi-induce_count candidate batch one
     program: every bucket trains/evaluates at shape ``pad_to``
-    (VERDICT r3 what's-missing #1; reference trains a fresh SVGP per
-    candidate for any induce_count, largegp.py:356-416)."""
+    (the reference trains a fresh SVGP per candidate for any
+    induce_count, largegp.py:356-416)."""
     n_task, M0, d = params["Z"].shape
     assert M0 == M_real
     n_pad = pad_to - M_real
@@ -170,7 +170,7 @@ class ApproximateGPModel(Model):
         batch_size=1024,
         induce_count=500,
         seed=100,
-        use_cuda=None,  # API parity; meaningless on TPU
+        use_cuda=None,  # API parity; the platform picks the device
     ):
         super().__init__(system)
         if kernel != "RBF":
@@ -449,7 +449,7 @@ def train_svgp_buckets(
     seed=100, pad_to=None,
 ):
     """Train one shared SVGP per DISTINCT induce_count — all buckets in
-    ONE jitted device program (VERDICT r3 item 4 / what's-missing #1).
+    ONE jitted device program.
 
     Every bucket trains at the padded shape ``pad_to`` (default
     max(induce_counts)) with exact no-op dummy inducing points

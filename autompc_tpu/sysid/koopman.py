@@ -104,7 +104,7 @@ class Koopman(Model):
         trig_basis=False,
         trig_freq=1,
         product_terms=False,
-        use_cuda=None,  # API parity; meaningless on TPU
+        use_cuda=None,  # API parity; the platform picks the device
     ):
         super().__init__(system)
         self.method = method

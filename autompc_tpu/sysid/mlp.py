@@ -83,7 +83,7 @@ def net_apply_jac(params, x, nonlin):
     (the reference computes batch Jacobians with a repeated-input
     backward trick for the same reason, autompc/sysid/mlp.py:281-305).
     At halfcheetah scale (24 inputs, 2x64 hidden) this is ~25% of
-    jacfwd's flops and keeps every op an MXU-shaped matmul — the
+    jacfwd's flops and keeps every op a dense matmul — the
     relinearization phase of the batched iLQR solve consumes it via
     ``make_batched_ilqr_solver(pred_diff=...)``.
 
@@ -166,7 +166,7 @@ class MLP(Model):
         hidden_size_3=None,
         hidden_size_4=None,
         seed=100,
-        use_cuda=None,  # accepted for API parity; meaningless on TPU
+        use_cuda=None,  # API parity; the platform picks the device
     ):
         super().__init__(system)
         nx, nu = system.obs_dim, system.ctrl_dim

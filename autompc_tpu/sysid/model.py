@@ -2,7 +2,7 @@
 pure step function).
 
 Re-creates the reference ``Model``/``ModelFactory`` contract (reference:
-autompc/sysid/model.py:8-244) with a TPU-native functional core:
+autompc/sysid/model.py:8-244) with an accelerator-native functional core:
 
 * Every model separates **static configuration** (shapes: history length,
   basis count, layer widths — attributes of the object) from **trained

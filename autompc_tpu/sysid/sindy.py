@@ -200,7 +200,7 @@ class SINDy(Model):
             # Cholesky emit NaN, which would silently store an all-zero
             # model. The tuner's fan-out scores such lanes inf, but this
             # standalone trainer falls back to the SVD-based STLSQ (a
-            # min-norm solution) instead — ADVICE r2 item 1.
+            # min-norm solution) instead.
             if not bool(jnp.all(jnp.isfinite(coefs))):
                 if not silent:
                     print(

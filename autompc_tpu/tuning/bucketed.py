@@ -4,7 +4,7 @@ hyperparameters.
 The reference tuner retrains one model per SMAC iteration
 (reference: autompc/tuning/model_tuner.py:104-115 via
 holdout_evaluator.py:112-121); hyperparameters like the ARX history
-window change array shapes, which on TPU would mean one compiled
+window change array shapes, which on an accelerator would mean one compiled
 training program per candidate. This module removes that recompile
 storm for ARX: every history candidate is padded to the maximum window
 ``kmax``, the padding is a per-candidate COLUMN MASK on the shared

@@ -1,4 +1,4 @@
-"""Mesh-parallel candidate evaluation: the TPU-native tuning fan-out.
+"""Mesh-parallel candidate evaluation: the accelerator-native tuning fan-out.
 
 No reference counterpart — SMAC evaluates one configuration at a time
 (reference: tuning/pipeline_tuner.py:268-271); here a whole batch of

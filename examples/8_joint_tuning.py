@@ -9,8 +9,7 @@ reference: tuning/pipeline_tuner.py:213-258, pipeline.py:107-168).
 Here the whole candidate batch — per-lane STLSQ training on the staged
 sysid data, per-lane-model per-lane-cost iLQR synthesis at every
 closed-loop step, task metric — runs as one sharded program
-(parallel/fanout.py:JointSINDyQuadCostFanout; measured 1,746x the
-sequential objective per chip, PERF.md).
+(parallel/fanout.py:JointSINDyQuadCostFanout).
 
 Run: python examples/8_joint_tuning.py
 (on CPU: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8)

@@ -60,50 +60,51 @@ def test_pallas_backward_matches_scan_backward(setup):
     sc = make_batched_ilqr_solver(
         model.pred_core, cost, backward="scan", **common
     )
+    # The backward kernel in interpret mode (the platform's default
+    # path on the GPU); the line search stays on XLA.
     pa = make_batched_ilqr_solver(
-        model.pred_core, cost, backward="pallas", **common
+        model.pred_core, cost, pallas_interpret=True, **common
     )
     rng = np.random.default_rng(1)
     B = 4
     x0s = jnp.asarray(rng.uniform(-0.5, 0.5, (B, 4)))
     ug = jnp.zeros((B, common["H"], 1))
-    # On CPU the pallas kernel runs in compiled CPU-interpret lowering
-    # only when interpret=True; here we only check both paths produce
-    # close solutions (pallas falls back gracefully off-TPU via
-    # interpret in tests).
-    try:
-        out_p = jax.jit(pa)(model.params, x0s, ug)
-    except Exception:
-        pytest.skip("pallas lowering unavailable on this backend")
+    out_p = jax.jit(pa)(model.params, x0s, ug)
     out_s = jax.jit(sc)(model.params, x0s, ug)
+    np.testing.assert_array_equal(np.asarray(out_p[0]), np.asarray(out_s[0]))
     np.testing.assert_allclose(
-        np.asarray(out_p[2]), np.asarray(out_s[2]), atol=1e-5
+        np.asarray(out_p[2]), np.asarray(out_s[2]), atol=1e-8
     )
 
 
 def test_feature_spec_ls_matches_scan_ls(setup):
-    """Batched solver with the Pallas line-search spec (interpret on
-    CPU is exercised in test_pallas_linesearch; here we check the
-    integration produces the same solve when the kernel lowers)."""
+    """Batched solver with a feature_spec: on the CPU the XLA line
+    search runs (identical to the plain solve); with
+    pallas_interpret=True the fused line-search kernel runs in
+    interpret mode and gives the same solve."""
     b, model, cost, common = setup
     plain = make_batched_ilqr_solver(
         model.pred_core, cost, backward="scan", **common
     )
-    with_fs = make_batched_ilqr_solver(
-        model.pred_core, cost, backward="scan",
-        feature_spec=(model.library, "coeffs"), **common
+    fs = dict(backward="scan", feature_spec=(model.library, "coeffs"))
+    with_fs = make_batched_ilqr_solver(model.pred_core, cost, **fs,
+                                       **common)
+    with_kernel = make_batched_ilqr_solver(
+        model.pred_core, cost, pallas_interpret=True, **fs, **common
     )
     rng = np.random.default_rng(2)
     B = 4
     x0s = jnp.asarray(rng.uniform(-0.5, 0.5, (B, 4)))
     ug = jnp.zeros((B, common["H"], 1))
     out_plain = jax.jit(plain)(model.params, x0s, ug)
-    try:
-        out_fs = jax.jit(with_fs)(model.params, x0s, ug)
-    except Exception:
-        pytest.skip("pallas lowering unavailable on this backend")
+    out_fs = jax.jit(with_fs)(model.params, x0s, ug)
+    out_k = jax.jit(with_kernel)(model.params, x0s, ug)
+    for a, b_ in zip(out_fs, out_plain):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b_))
+    np.testing.assert_array_equal(np.asarray(out_k[0]),
+                                  np.asarray(out_plain[0]))
     np.testing.assert_allclose(
-        np.asarray(out_fs[2]), np.asarray(out_plain[2]), atol=1e-6
+        np.asarray(out_k[2]), np.asarray(out_plain[2]), atol=1e-8
     )
 
 
@@ -188,28 +189,27 @@ def test_batched_assoc_backward_matches_scan(setup):
 
 
 def test_fused_ls_matches_scan_ls(setup):
-    """Batched solver with the fused line-search kernel (objective +
-    acceptance in VMEM) matches the plain solve when the kernel lowers
-    (TPU; skipped where Pallas can't lower compiled)."""
+    """Both kernels in interpret mode (the GPU's default path for this
+    solver: dc=1, diagonal QuadCost, linear-in-features model) match
+    the plain XLA solve."""
     b, model, cost, common = setup
     plain = make_batched_ilqr_solver(
         model.pred_core, cost, backward="scan", **common
     )
     fused = make_batched_ilqr_solver(
-        model.pred_core, cost, backward="scan",
-        feature_spec=(model.library, "coeffs"), fuse_ls=True, **common
+        model.pred_core, cost, feature_spec=(model.library, "coeffs"),
+        pallas_interpret=True, **common
     )
     rng = np.random.default_rng(5)
     B = 4
     x0s = jnp.asarray(rng.uniform(-0.5, 0.5, (B, 4)))
     ug = jnp.zeros((B, common["H"], 1))
     out_plain = jax.jit(plain)(model.params, x0s, ug)
-    try:
-        out_f = jax.jit(fused)(model.params, x0s, ug)
-    except Exception:
-        pytest.skip("pallas lowering unavailable on this backend")
+    out_f = jax.jit(fused)(model.params, x0s, ug)
+    np.testing.assert_array_equal(np.asarray(out_f[0]),
+                                  np.asarray(out_plain[0]))
     np.testing.assert_allclose(
-        np.asarray(out_f[2]), np.asarray(out_plain[2]), atol=1e-5
+        np.asarray(out_f[2]), np.asarray(out_plain[2]), atol=1e-8
     )
 
 
@@ -375,35 +375,24 @@ def test_feature_mask_matches_dense(setup):
     )
     assert 0 < len(active) < coeffs.shape[1]
 
-    dense = make_batched_ilqr_solver(
-        model.pred_core, cost, backward="scan",
-        feature_spec=(model.library, "coeffs"), **common
-    )
+    kw = dict(backward="scan", feature_spec=(model.library, "coeffs"),
+              pallas_interpret=True)
+    dense = make_batched_ilqr_solver(model.pred_core, cost, **kw, **common)
     masked = make_batched_ilqr_solver(
-        model.pred_core, cost, backward="scan",
-        feature_spec=(model.library, "coeffs"),
-        feature_mask=active, **common
+        model.pred_core, cost, feature_mask=active, **kw, **common
     )
     masked_bool = make_batched_ilqr_solver(
-        model.pred_core, cost, backward="scan",
-        feature_spec=(model.library, "coeffs"),
+        model.pred_core, cost,
         feature_mask=[k in active for k in range(coeffs.shape[1])],
-        **common
+        **kw, **common
     )
     rng = np.random.default_rng(7)
     B = 4
     x0s = jnp.asarray(rng.uniform(-0.5, 0.5, (B, 4)))
     ug = jnp.zeros((B, common["H"], 1))
-    try:
-        out_d = jax.jit(dense)(model.params, x0s, ug)
-        out_m = jax.jit(masked)(model.params, x0s, ug)
-        out_mb = jax.jit(masked_bool)(model.params, x0s, ug)
-    except Exception as e:
-        msg = str(e).lower()
-        if ("pallas" in msg or "mosaic" in msg
-                or "interpret mode" in msg):
-            pytest.skip("pallas lowering unavailable on this backend")
-        raise
+    out_d = jax.jit(dense)(model.params, x0s, ug)
+    out_m = jax.jit(masked)(model.params, x0s, ug)
+    out_mb = jax.jit(masked_bool)(model.params, x0s, ug)
     np.testing.assert_allclose(
         np.asarray(out_m[2]), np.asarray(out_d[2]), atol=1e-5
     )

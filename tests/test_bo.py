@@ -2,7 +2,7 @@
 
 The reference delegates hyperparameter search to SMAC4HPO, which makes
 one model-informed decision per evaluation (strictly sequential
-ask/tell, autompc/tuning/pipeline_tuner.py:260-271). The TPU build
+ask/tell, autompc/tuning/pipeline_tuner.py:260-271). This build
 evaluates candidates in parallel batches, so every proposal *within* a
 batch must also be model-informed — otherwise a tune of n_iters
 evaluations makes only n_iters/batch adaptive decisions (the round-5

@@ -186,7 +186,7 @@ class TestCachedTuneAsset:
 
 
 def test_fanout_regw_missing_raises_at_call_boundary():
-    """ADVICE r2 item 3: a fan-out built with reg_matrix must reject a
+    """A fan-out built with reg_matrix must reject a
     batch missing 'regw' with a labeled ValueError at the call
     boundary, not a raw KeyError from inside jit tracing."""
     import jax.numpy as jnp
@@ -223,7 +223,7 @@ def test_fanout_regw_missing_raises_at_call_boundary():
 
 
 def test_sindy_gram_nan_falls_back_to_svd(monkeypatch, capsys):
-    """ADVICE r2 item 1: a non-finite Gram-staged STLSQ result in the
+    """A non-finite Gram-staged STLSQ result in the
     standalone SINDy trainer falls back to the SVD path instead of
     silently storing an all-zero model."""
     import jax.numpy as jnp

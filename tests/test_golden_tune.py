@@ -1,5 +1,4 @@
-"""Golden-pinned fixed-seed GaussReg/SumCost tuning run (VERDICT r2
-item 7).
+"""Golden-pinned fixed-seed GaussReg/SumCost tuning run.
 
 The per-term GaussReg/SumCost costs are pinned by unit tests
 (test_costs.py) and the fan-out==sequential parity by test_tuning.py;
@@ -69,9 +68,9 @@ JOINT_GOLDEN = os.path.join(
 
 @pytest.mark.slow
 def test_joint_sindy_tune_matches_golden():
-    """Golden-pinned flagship JOINT tune (VERDICT r3 item 7): the BO
-    trajectory of a fixed-seed SINDy+QuadCost+iLQR tune routed through
-    the joint_sindy fan-out — the 3,808 evals/s path."""
+    """Golden-pinned flagship JOINT tune: the BO trajectory of a
+    fixed-seed SINDy+QuadCost+iLQR tune routed through the joint_sindy
+    fan-out."""
     import sys
 
     sys.path.insert(

@@ -7,9 +7,9 @@ compiled at H=h lane-for-lane (CPU x64), and heff=H equals the
 unmasked solver.
 
 Motivation: the AutoML tuner's controller-horizon hyperparameter
-otherwise compiles one program per distinct horizon — the round-5
-bench_tune profile measured ~one multi-minute TPU compile per fresh
-candidate (reference space: /root/reference/autompc/control/ilqr.py:24-27).
+otherwise compiles one program per distinct horizon (reference space:
+autompc/control/ilqr.py:24-27). The unmasked solves run the backward
+kernel in interpret mode; the masked ones take the XLA path.
 """
 
 import jax
@@ -36,7 +36,7 @@ def setup():
         ds=4, dc=1, obsdim=4, dt=b.system.dt,
         ubounds=(bounds[:, 0], bounds[:, 1]), max_iter=8,
         quad_cost_batch=True, quad_goal=np.zeros(4),
-        backward="pallas", pallas_interpret=True,
+        backward="auto", pallas_interpret=True,
         pred_diff=lambda p, x, u: model.pred_diff_core(p, x, u),
     )
     rng = np.random.default_rng(5)

@@ -75,7 +75,6 @@ def test_joint_fanout_matches_sequential(setup):
     fanout = JointSINDyQuadCostFanout(
         b.system, task, SINDY_CFG, sysid_trajs, surrogate,
         horizon=horizon, n_steps=n_steps, backward="scan",
-        use_feature_kernels=False,
     )
     rng = np.random.default_rng(0)
     B = 5
@@ -107,7 +106,6 @@ def test_joint_fanout_compaction_and_warmstart_run(setup):
     fanout = JointSINDyQuadCostFanout(
         b.system, task, SINDY_CFG, sysid_trajs, surrogate,
         horizon=6, n_steps=8, backward="scan",
-        use_feature_kernels=False,
         compact_schedule=((6, 0.5),), warm_start=True,
     )
     rng = np.random.default_rng(1)
@@ -130,7 +128,7 @@ def test_joint_fanout_on_mesh(setup):
     b, task, sysid_trajs, surrogate = setup
     mesh = make_mesh()
     kw = dict(
-        horizon=6, n_steps=8, backward="scan", use_feature_kernels=False,
+        horizon=6, n_steps=8, backward="scan",
     )
     fan_local = JointSINDyQuadCostFanout(
         b.system, task, SINDY_CFG, sysid_trajs, surrogate, **kw

@@ -1,186 +1,112 @@
-"""Pallas Riccati backward-pass kernel vs the scan reference."""
+"""Pallas (Triton route) backward-pass kernel vs the scan reference, in
+interpret mode: the kernel's inline diagonal-quadratic expansions fed
+to ``tvlqr_backward_scan`` as explicit (Cxx, Cuu, cx, cu, Vn, vn)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from autompc_tpu.ops.pallas_riccati import pallas_tvlqr_backward
+from autompc_tpu.ops.pallas_riccati import (
+    BLOCK_B,
+    block_for,
+    pad_batch,
+    pallas_tvlqr_backward_quad,
+)
 from autompc_tpu.ops.riccati import tvlqr_backward_scan
 
 
-def make_problem(B, H, ds, seed=0, dtype=jnp.float32):
+def _inputs(B, H, ds, obsdim, seed=0):
     rng = np.random.default_rng(seed)
-    Jx = jnp.asarray(rng.normal(size=(B, H, ds, ds)) * 0.3, dtype)
-    Ju = jnp.asarray(rng.normal(size=(B, H, ds, 1)), dtype)
-    Cxx = jnp.asarray(
-        np.broadcast_to(np.eye(ds), (B, H, ds, ds)).copy(), dtype
+    return dict(
+        Jx=jnp.asarray(np.eye(ds) + 0.1 * rng.normal(size=(B, H, ds, ds))),
+        Ju=jnp.asarray(0.1 * rng.normal(size=(B, H, ds, 1))),
+        xs=jnp.asarray(rng.normal(size=(B, H + 1, ds))),
+        us=jnp.asarray(rng.normal(size=(B, H, 1))),
+        Qd=jnp.asarray(rng.uniform(0.1, 2.0, (B, obsdim))),
+        Rd=jnp.asarray(rng.uniform(0.1, 2.0, (B, 1))),
+        Fd=jnp.asarray(rng.uniform(0.1, 2.0, (B, obsdim))),
+        goal=jnp.asarray(rng.normal(size=obsdim)),
     )
-    Cuu = jnp.asarray(np.full((B, H, 1, 1), 0.5), dtype)
-    cx = jnp.asarray(rng.normal(size=(B, H, ds)), dtype)
-    cu = jnp.asarray(rng.normal(size=(B, H, 1)), dtype)
-    Vn = jnp.asarray(np.broadcast_to(2 * np.eye(ds), (B, ds, ds)).copy(), dtype)
-    vn = jnp.asarray(rng.normal(size=(B, ds)), dtype)
-    return Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn
 
 
-@pytest.mark.parametrize("ds,H,B", [(4, 12, 8), (5, 20, 16), (2, 7, 4)])
+def _reference(a, dt, obsdim):
+    """vmap(tvlqr_backward_scan) on the QuadCost expansions."""
+    B, H, ds, _ = a["Jx"].shape
+    oi = jnp.arange(obsdim)
+
+    def one(Jx, Ju, xs, us, Qd, Rd, Fd):
+        dx = xs[:H, :obsdim] - a["goal"]
+        cx = jnp.zeros((H, ds)).at[:, :obsdim].set(2 * dx * Qd * dt)
+        Cxx = jnp.zeros((H, ds, ds)).at[:, oi, oi].set(
+            jnp.broadcast_to(2 * Qd * dt, (H, obsdim))
+        )
+        Cuu = jnp.broadcast_to(2 * Rd * dt, (H, 1, 1))
+        cu = 2 * us * Rd * dt
+        Vn = jnp.zeros((ds, ds)).at[oi, oi].set(2 * Fd)
+        vn = jnp.zeros(ds).at[:obsdim].set(
+            2 * Fd * (xs[H, :obsdim] - a["goal"])
+        )
+        return tvlqr_backward_scan(Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn)
+
+    return jax.vmap(one)(a["Jx"], a["Ju"], a["xs"], a["us"], a["Qd"],
+                         a["Rd"], a["Fd"])
+
+
+def _kernel(a, dt, obsdim):
+    return pallas_tvlqr_backward_quad(
+        a["Jx"], a["Ju"], a["xs"], a["us"], a["Qd"], a["Rd"], a["Fd"],
+        a["goal"], dt, obsdim, interpret=True,
+    )
+
+
+def _assert_close(out, ref, tol=1e-10):
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        np.testing.assert_allclose(np.asarray(o), np.asarray(r),
+                                   rtol=tol, atol=tol)
+
+
+# Non-power-of-two horizons and batches: Triton blocks are powers of
+# two, so H is looped inside the program and the batch is padded.
+@pytest.mark.parametrize("ds,H,B", [(4, 12, 8), (5, 20, 16), (2, 7, 3)])
 def test_matches_scan(ds, H, B):
-    args = make_problem(B, H, ds, seed=ds, dtype=jnp.float64)
-    Ks_p, ks_p, lin_p, quad_p = pallas_tvlqr_backward(
-        *args, block_b=B, interpret=True
-    )
-    Ks_s, ks_s, lin_s, quad_s = jax.vmap(tvlqr_backward_scan)(*args)
-    np.testing.assert_allclose(np.asarray(Ks_p), np.asarray(Ks_s), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(ks_p), np.asarray(ks_s), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(lin_p), np.asarray(lin_s), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(quad_p), np.asarray(quad_s), rtol=1e-9)
+    a = _inputs(B, H, ds, ds)
+    _assert_close(_kernel(a, 0.05, ds), _reference(a, 0.05, ds))
 
 
 def test_multi_block_grid():
-    args = make_problem(32, 10, 3, seed=7, dtype=jnp.float64)
-    Ks_p, ks_p, lin_p, quad_p = pallas_tvlqr_backward(
-        *args, block_b=8, interpret=True
-    )
-    Ks_s, ks_s, lin_s, quad_s = jax.vmap(tvlqr_backward_scan)(*args)
-    np.testing.assert_allclose(np.asarray(Ks_p), np.asarray(Ks_s), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(quad_p), np.asarray(quad_s), rtol=1e-9)
+    """More lanes than one program holds, with a ragged last block."""
+    B = 2 * BLOCK_B + 5
+    a = _inputs(B, 6, 4, 4, seed=1)
+    _assert_close(_kernel(a, 0.1, 4), _reference(a, 0.1, 4))
 
 
 def test_rejects_multi_ctrl():
-    rng = np.random.default_rng(0)
-    with pytest.raises(ValueError):
-        pallas_tvlqr_backward(
-            jnp.zeros((4, 5, 3, 3)), jnp.zeros((4, 5, 3, 2)),
-            jnp.zeros((4, 5, 3, 3)), jnp.zeros((4, 5, 2, 2)),
-            jnp.zeros((4, 5, 3)), jnp.zeros((4, 5, 2)),
-            jnp.zeros((4, 3, 3)), jnp.zeros((4, 3)),
-            interpret=True,
+    a = _inputs(4, 5, 4, 4)
+    Ju2 = jnp.concatenate([a["Ju"], a["Ju"]], axis=-1)
+    with pytest.raises(ValueError, match="dc=1"):
+        pallas_tvlqr_backward_quad(
+            a["Jx"], Ju2, a["xs"], a["us"], a["Qd"], a["Rd"], a["Fd"],
+            a["goal"], 0.05, 4, interpret=True,
         )
 
 
 def test_quad_backward_matches_explicit_expansions():
-    """pallas_tvlqr_backward_quad (inline diagonal-quadratic stage
-    expansions) vs tvlqr_backward_scan fed the explicit QuadCost
-    expansions (value (x-g)'Q(x-g), grad 2Q(x-g), hess 2Q, dt-scaled:
-    reference autompc/control/ilqr.py:165-187, costs/cost.py:62-141),
-    with per-lane diagonals and ds > obsdim padding."""
-    from autompc_tpu.ops.pallas_riccati import pallas_tvlqr_backward_quad
-
-    rng = np.random.default_rng(3)
-    B, H, ds, obsdim, dt = 8, 9, 5, 4, 0.05
-    dtype = jnp.float64
-    Jx = jnp.asarray(rng.normal(size=(B, H, ds, ds)) * 0.3, dtype)
-    Ju = jnp.asarray(rng.normal(size=(B, H, ds, 1)), dtype)
-    xs = jnp.asarray(rng.normal(size=(B, H + 1, ds)), dtype)
-    us = jnp.asarray(rng.normal(size=(B, H, 1)), dtype)
-    Qd = jnp.asarray(rng.uniform(0.1, 5.0, (B, obsdim)), dtype)
-    Rd = jnp.asarray(rng.uniform(0.01, 1.0, (B, 1)), dtype)
-    Fd = jnp.asarray(rng.uniform(0.1, 5.0, (B, obsdim)), dtype)
-    goal = jnp.asarray(rng.normal(size=(obsdim,)), dtype)
-
-    Ks_q, ks_q, lin_q, quad_q = pallas_tvlqr_backward_quad(
-        Jx, Ju, xs, us, Qd, Rd, Fd, goal, dt, obsdim,
-        block_b=B, interpret=True,
-    )
-
-    def expansions(b):
-        dx = xs[b, :H, :obsdim] - goal
-        cx = jnp.zeros((H, ds)).at[:, :obsdim].set(
-            2.0 * dx * Qd[b][None, :] * dt
-        )
-        oi = jnp.arange(obsdim)
-        Cxx = jnp.zeros((H, ds, ds)).at[:, oi, oi].set(
-            jnp.broadcast_to(2.0 * Qd[b] * dt, (H, obsdim))
-        )
-        Cuu = jnp.broadcast_to(
-            (2.0 * Rd[b] * dt)[None, :, None], (H, 1, 1)
-        )
-        cu = 2.0 * us[b] * Rd[b][None, :] * dt
-        dxt = xs[b, H, :obsdim] - goal
-        Vn = jnp.zeros((ds, ds)).at[oi, oi].set(2.0 * Fd[b])
-        vn = jnp.zeros(ds).at[:obsdim].set(2.0 * Fd[b] * dxt)
-        return Cxx, Cuu, cx, cu, Vn, vn
-
-    for b in range(B):
-        Cxx, Cuu, cx, cu, Vn, vn = expansions(b)
-        Ks_s, ks_s, lin_s, quad_s = tvlqr_backward_scan(
-            Jx[b], Ju[b], Cxx, Cuu, cx, cu, Vn, vn
-        )
-        np.testing.assert_allclose(
-            np.asarray(Ks_q[b]), np.asarray(Ks_s), rtol=1e-9, atol=1e-12
-        )
-        np.testing.assert_allclose(
-            np.asarray(ks_q[b]), np.asarray(ks_s), rtol=1e-9, atol=1e-12
-        )
-        np.testing.assert_allclose(
-            np.asarray(lin_q[b]), np.asarray(lin_s), rtol=1e-9, atol=1e-12
-        )
-        np.testing.assert_allclose(
-            np.asarray(quad_q[b]), np.asarray(quad_s), rtol=1e-9, atol=1e-12
-        )
+    """obsdim < ds (a lifted or augmented state): the cost touches only
+    the observed components, with a nonzero goal."""
+    a = _inputs(6, 9, 5, 3, seed=2)
+    _assert_close(_kernel(a, 0.05, 3), _reference(a, 0.05, 3))
 
 
-def make_problem_mc(B, H, ds, dc, seed=0, dtype=jnp.float64):
-    """Multi-control problem with SPD Cuu (per-lane Cholesky)."""
-    rng = np.random.default_rng(seed)
-    Jx = jnp.asarray(rng.normal(size=(B, H, ds, ds)) * 0.3, dtype)
-    Ju = jnp.asarray(rng.normal(size=(B, H, ds, dc)), dtype)
-    Cxx = jnp.asarray(
-        np.broadcast_to(np.eye(ds), (B, H, ds, ds)).copy(), dtype
-    )
-    M = rng.normal(size=(B, H, dc, dc)) * 0.2
-    Cuu = jnp.asarray(
-        M @ np.swapaxes(M, -1, -2) + 0.5 * np.eye(dc), dtype
-    )
-    cx = jnp.asarray(rng.normal(size=(B, H, ds)), dtype)
-    cu = jnp.asarray(rng.normal(size=(B, H, dc)), dtype)
-    Vn = jnp.asarray(
-        np.broadcast_to(2 * np.eye(ds), (B, ds, ds)).copy(), dtype
-    )
-    vn = jnp.asarray(rng.normal(size=(B, ds)), dtype)
-    return Jx, Ju, Cxx, Cuu, cx, cu, Vn, vn
-
-
-@pytest.mark.parametrize(
-    "ds,dc,H,B", [(4, 1, 12, 8), (5, 3, 10, 8)]
-)
-def test_general_kernel_matches_scan(ds, dc, H, B):
-    """The any-(ds, dc) time-streamed kernel vs the scan reference.
-    (dc=3 exercises every multi-control path incl. the off-diagonal
-    Cholesky terms. The halfcheetah shape ds=18/dc=6 is NOT run here:
-    interpret mode executes the ~20k-slab-op cell body op-by-op in
-    Python and takes >20 min even at H=2; that shape is validated
-    compiled-on-TPU by tools/check_general_backward_tpu.py and
-    benched in bench_extra.py.)"""
-    from autompc_tpu.ops.pallas_riccati import pallas_tvlqr_backward_general
-
-    args = make_problem_mc(B, H, ds, dc, seed=ds + dc)
-    Ks_p, ks_p, lin_p, quad_p = pallas_tvlqr_backward_general(
-        *args, block_b=B, interpret=True
-    )
-    Ks_s, ks_s, lin_s, quad_s = jax.vmap(tvlqr_backward_scan)(*args)
-    np.testing.assert_allclose(
-        np.asarray(Ks_p), np.asarray(Ks_s), rtol=1e-8, atol=1e-10
-    )
-    np.testing.assert_allclose(
-        np.asarray(ks_p), np.asarray(ks_s), rtol=1e-8, atol=1e-10
-    )
-    np.testing.assert_allclose(
-        np.asarray(lin_p), np.asarray(lin_s), rtol=1e-8
-    )
-    np.testing.assert_allclose(
-        np.asarray(quad_p), np.asarray(quad_s), rtol=1e-8
-    )
-
-
-def test_general_kernel_multi_block_grid():
-    from autompc_tpu.ops.pallas_riccati import pallas_tvlqr_backward_general
-
-    args = make_problem_mc(16, 8, 3, 2, seed=5)
-    out_p = pallas_tvlqr_backward_general(*args, block_b=4, interpret=True)
-    out_s = jax.vmap(tvlqr_backward_scan)(*args)
-    for a, b in zip(out_p, out_s):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-8, atol=1e-10
-        )
+def test_block_and_padding_helpers():
+    assert block_for(1) == 1
+    assert block_for(3) == 4
+    assert block_for(10 ** 6) == BLOCK_B
+    x = jnp.arange(10.0).reshape(5, 2)
+    (padded,), B = pad_batch([x], 4)
+    assert B == 5 and padded.shape == (8, 2)
+    np.testing.assert_array_equal(np.asarray(padded[5:]),
+                                  np.repeat(np.asarray(x[-1:]), 3, 0))
+    (same,), _ = pad_batch([x], 5)
+    assert same is x

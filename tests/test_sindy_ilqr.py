@@ -437,7 +437,7 @@ def test_stlsq_gram_matches_svd_stlsq():
 
 
 def test_stlsq_gram_f32_ill_conditioned_library():
-    """The production TPU path stages in f32, where the normal
+    """The production accelerator path stages in f32, where the normal
     equations square the conditioning; the Jacobi-scaled Cholesky
     solves must still recover the SVD formulation's support on a much
     worse-conditioned library (poly degree 3 + cross terms + trig —

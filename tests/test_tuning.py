@@ -651,9 +651,9 @@ class TestPipelineTunerFanout:
 
     def test_fanout_fallback_warns_with_reason(self, benchmark, trajs):
         """use_fanout=True with an uncovered pipeline warns instead of
-        silently degrading to the sequential path (round-1 VERDICT item
-        10). GaussRegFactory alone is covered since round 2 (the
-        batched solver's reg term), so the uncovered layout here is a
+        silently degrading to the sequential path. GaussRegFactory
+        alone is covered (the batched solver's reg term), so the
+        uncovered layout here is a
         SumCostFactory of TWO QuadCostFactories — outside
         _cost_fanout_spec's at-most-one-of-each contract."""
         from autompc_tpu.costs import GaussRegFactory, SumCostFactory

@@ -3,10 +3,9 @@
 The reference benchmark's ground truth IS MuJoCo (reference
 autompc/benchmarks/halfcheetah.py:187-202, gym HalfCheetah via
 mujoco_py); this repo's oracle is a from-scratch planar Lagrangian
-simulator (autompc_tpu/benchmarks/halfcheetah.py). VERDICT r4 item 4:
-until the two are compared quantitatively, "halfcheetah parity" is a
-naming claim. This tool rolls IDENTICAL seeded control sequences
-through both and reports:
+simulator (autompc_tpu/benchmarks/halfcheetah.py). Until the two are
+compared quantitatively, "halfcheetah parity" is a naming claim. This
+tool rolls IDENTICAL seeded control sequences through both and reports:
 
 * one-step prediction error along the MuJoCo trajectory (re-synced
   every env step — instantaneous dynamics fidelity, the honest metric

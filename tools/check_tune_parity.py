@@ -1,5 +1,5 @@
 """Tuning-quality parity: our tuner's incumbents vs the reference's
-shipped cached tune (VERDICT r4 item 10).
+shipped cached tune.
 
 The reference ships its "5+ hours" 100-iteration SMAC tune result as
 assets/cached_tunes/cartpole_tune_result.pkl (loaded by reference

@@ -13,10 +13,10 @@ off and on and reports:
   * Spearman rank correlation of the cost vectors,
   * median relative cost difference.
 
-Promotion rule (VERDICT r4 item 6): warm start becomes the gp-mode
+Promotion rule: warm start becomes the gp-mode
 default only if top-1 matches and Spearman > 0.95.
 
-Run: python tools/check_warmstart_parity.py       (TPU or CPU)
+Run: python tools/check_warmstart_parity.py       (GPU or CPU)
 Env: WSP_B=64 candidates, WSP_M=100 inducing points.
 """
 
@@ -42,7 +42,6 @@ def main():
     from autompc_tpu.sysid import SINDy
     from autompc_tpu.sysid.gp import ApproximateGPModel
 
-    on_tpu = jax.default_backend() == "tpu"
     B = int(os.environ.get("WSP_B", "64"))
     benchmark = CartpoleSwingupBenchmark()
     trajs = benchmark.gen_trajs_batch(seed=42, n_trajs=50, traj_len=100)
@@ -74,7 +73,6 @@ def main():
             benchmark.system, benchmark.task, gp_model, surrogate,
             horizon=10, n_steps=50, goal=np.zeros(4),
             compact_schedule=compact,
-            backward="pallas" if on_tpu else "scan",
             warm_start=warm,
         )
         costs[warm] = np.asarray(fan(batch))

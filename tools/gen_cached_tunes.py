@@ -8,7 +8,7 @@ Usage:  python tools/gen_cached_tunes.py {cartpole|halfcheetah}
 Runs a fan-out PipelineTuner tune (one sharded program per candidate
 batch) and checkpoints the result under assets/cached_tunes/. Cartpole
 runs fine on CPU (prefix ``PYTHONPATH= JAX_PLATFORMS=cpu``); the
-halfcheetah tune wants the TPU.
+halfcheetah tune wants the GPU.
 """
 
 import os

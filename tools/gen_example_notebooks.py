@@ -2,8 +2,8 @@
 
 The reference ships six interactive notebooks (reference:
 examples/0_MainDemo..5_Tuning.ipynb); this repo's functional coverage
-lives in scripts. VERDICT r2 "missing #3" asks for the guided
-interactive form too, so this tool derives notebooks from the scripts
+lives in scripts. For the guided interactive form too, this tool derives
+notebooks from the scripts
 (single source of truth — regenerate after editing a script):
 
 * module docstring -> markdown intro cell,

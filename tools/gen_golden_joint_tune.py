@@ -1,8 +1,8 @@
 """Generate the golden JOINT SINDy+QuadCost+iLQR tuning history
 (tests/golden/joint_sindy_tune_golden.json).
 
-VERDICT r3 item 7: the flagship joint fan-out (a fresh SINDy model
-trained per candidate — the 3,808 evals/s path; reference scenario
+The flagship joint fan-out (a fresh SINDy model trained per
+candidate; reference scenario
 autompc/tuning/pipeline_tuner.py:213-258) has fan-out==sequential
 parity tests but no pinned end-to-end BO trajectory. Same mechanism as
 tools/gen_golden_tune.py: pin every evaluated config's cost, the

@@ -1,7 +1,7 @@
 """Generate the golden GaussReg/SumCost tuning history
 (tests/golden/gauss_reg_tune_golden.json).
 
-VERDICT r2 item 7: the per-term GaussReg costs are pinned by unit
+The per-term GaussReg costs are pinned by unit
 tests, but the BO-interaction trajectory (ask/tell sequence, incumbent
 progression) was not — a silent change to the tuner's search behavior
 would go unnoticed. This pins a complete fixed-seed tune: every

@@ -17,8 +17,8 @@ import numpy as np
 
 def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
-    backward = sys.argv[2] if len(sys.argv) > 2 else "pallas"
-    ls = sys.argv[3] if len(sys.argv) > 3 else "pallas"
+    backward = sys.argv[2] if len(sys.argv) > 2 else "auto"
+    ls = sys.argv[3] if len(sys.argv) > 3 else "kernel"
 
     import jax
 
@@ -56,8 +56,7 @@ def main():
         H=H, ds=4, dc=1, obsdim=4, dt=system.dt,
         ubounds=(bounds[:, 0], bounds[:, 1]),
         backward=backward,
-        feature_spec=(model.library, "coeffs") if ls == "pallas" else None,
-        block_b=128,
+        feature_spec=(model.library, "coeffs") if ls == "kernel" else None,
     )
 
     rng = np.random.default_rng(0)
@@ -144,8 +143,8 @@ def main():
     t0 = time.perf_counter()
     outs = jax.block_until_ready(solve_s(model.params, x0s, uguess))
     print(f"[diag] staged compile+first run {time.perf_counter() - t0:.1f}s")
-    # Bit-exactness across bucket sizes holds on CPU (tested) but not on
-    # TPU: different batch shapes tile reductions differently, so
+    # Bit-exactness across bucket sizes holds on the CPU (tested) but not
+    # on the GPU: different batch shapes order reductions differently, so
     # borderline lanes can flip convergence. Compare aggregate quality.
     fb = np.asarray(out[0]).mean()
     fs = np.asarray(outs[0]).mean()

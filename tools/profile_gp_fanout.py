@@ -1,10 +1,10 @@
-"""Phase profile of the GP-candidate tuning fan-out (VERDICT r3 item 4).
+"""Phase profile of the GP-candidate tuning fan-out.
 
-The gp-mode bench_scaling row (649-651 evals/s) sits ~4x below the
-fixed-SINDy-model row (2,616) with no profile explaining why. This tool
+On the earlier accelerator the gp-mode bench_scaling row sat ~4x below
+the fixed-SINDy-model row with no profile explaining why. This tool
 splits the fan-out's per-step batched iLQR body into phases at the
 bench shapes (B=512 candidates, horizon 10, cartpole dims, SVGP M=100)
-— the same method as tools/profile_cheetah_phases.py — and separately
+and separately
 times:
 
   * shared-SVGP training per induce_count bucket (the joint_gp tuner
@@ -133,12 +133,10 @@ def main():
         goal=jnp.zeros(4),
     )
     bounds = benchmark.task.get_ctrl_bounds()
-    on_tpu = jax.default_backend() == "tpu"
     solve, make_carry0, cond, make_body = make_batched_ilqr_solver(
         gp.pred_core, cost,
         H=H, ds=ds, dc=dc, obsdim=ds, dt=system.dt,
         ubounds=(bounds[:, 0], bounds[:, 1]),
-        backward="pallas" if on_tpu else "scan",
         return_pieces=True,
     )
     body = make_body(params)

@@ -1,8 +1,7 @@
 """Phase timing for the JOINT AutoML fan-out (SCALE_MODE=joint shape).
 
-The compaction-schedule sweep measured the joint throughput to be
-schedule-INSENSITIVE (~130 evals/s at 512 candidates/chip for every
-schedule incl. none), so the bottleneck is not converged-lane waste.
+On the earlier accelerator the joint throughput was insensitive to the
+compaction schedule, so the bottleneck was not converged-lane waste.
 This times the joint eval's constituent programs separately:
 
     train      vmapped per-lane STLSQ/FISTA fit (once per batch)
@@ -13,8 +12,8 @@ This times the joint eval's constituent programs separately:
 Full ~= train + n_steps * (solve1 + surrogate) when phases dominate;
 a large residual means fusion/dispatch effects matter.
 
-Usage (TPU): PYTHONPATH=/root/repo:$PYTHONPATH python tools/profile_joint_fanout.py
-Env: PROF_B (512), PROF_H (10), PROF_STEPS (50), PROF_FUSE (1).
+Usage (GPU): python tools/profile_joint_fanout.py
+Env: PROF_B (512), PROF_H (10), PROF_STEPS (50).
 """
 
 import os
@@ -54,7 +53,6 @@ def main():
     B = int(os.environ.get("PROF_B", "512"))
     H = int(os.environ.get("PROF_H", "10"))
     n_steps = int(os.environ.get("PROF_STEPS", "50"))
-    fuse = os.environ.get("PROF_FUSE", "1") != "0"
 
     benchmark = CartpoleSwingupBenchmark()
     system = benchmark.system
@@ -99,12 +97,9 @@ def main():
         pred_core, None,
         H=H, ds=n, dc=dc, obsdim=n, dt=system.dt,
         ubounds=(bounds[:, 0], bounds[:, 1]),
-        backward="pallas",
         feature_spec=(library, "coeffs"),
-        fuse_ls=fuse,
         batch_params=True, quad_cost_batch=True,
         quad_goal=jnp.zeros(n),
-        ls_block_l=10,
     ))
     cps = {
         "Qdiag": jnp.asarray(10 ** rng.uniform(-1, 1.5, (B, n))),
